@@ -1,0 +1,291 @@
+"""Shared machinery for humanoid environments, flat floor and no motor model
+(counterpart of learninghumanoidwalking_tpu/envs/humanoid.py).
+
+The JAX env vmaps per-env pure functions around a batch-in-lanes physics
+call; here every step is written over the batch. Physics runs through
+ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernel K1 for CUDA
+tensors, its plain PyTorch version for CPU tensors. No batch size routes
+the card back to the plain version.
+
+Ported: action smoothing and nominal-pose offsets, the PD substep loop,
+observation history, reset with settle substeps, dynamics randomization and
+perturbation wrenches (sampled from a ``Draws`` source), non-finite
+termination. Not ported yet (they raise): observation noise, the learned
+motor model, PD-gain and back-EMF randomization, terrain.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import numpy as np
+import torch
+
+from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
+from learninghumanoidwalking_tpu_torch.ops.substep_kernel import pd_substeps_kernel
+from learninghumanoidwalking_tpu_torch.physics import engine, interface
+from learninghumanoidwalking_tpu_torch.physics.model import DynParams, default_dyn_params, tree_map
+from learninghumanoidwalking_tpu_torch.utils import maths
+from learninghumanoidwalking_tpu_torch.utils.config import load_json
+
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
+
+
+class HumanoidEnv(Env):
+    """Base for humanoid envs. Subclass contract (as in the JAX package):
+    __init__ sets model, cfg, kp, kd, nominal_qpos, ROOT/HEAD/foot body
+    names and reward_names, then calls _finalize(). Hooks: _task_reset,
+    _task_step, _reward, _done, _external_obs."""
+
+    ROOT_BODY = "pelvis"
+    HEAD_BODY = "torso_link"
+    include_torque_obs = False
+    num_external_obs = 0
+
+    def _finalize(self) -> None:
+        m = self.model
+        cfg = self.cfg
+        self.sim_dt = float(cfg.sim_dt)
+        self.control_dt = float(cfg.control_dt)
+        self.frame_skip = int(round(self.control_dt / self.sim_dt))
+        self.history_len = int(cfg.obs_history_len or 1)
+        self.action_smoothing = float(cfg.action_smoothing or 0.5)
+        self.action_size = m.nu
+
+        # factorization-reuse interval R (JAX envs/humanoid.py:78-80): default
+        # 5 where it divides frame_skip; config physics_reuse_interval or the
+        # LHW_PHYSICS_REUSE environment variable (tests pin R with it) override
+        reuse_cfg = os.environ.get("LHW_PHYSICS_REUSE") or cfg.physics_reuse_interval
+        default = 5 if (self.frame_skip % 5 == 0 and m.nterrain == 0) else 1
+        reuse = int(reuse_cfg) if reuse_cfg is not None else default
+        self.physics_reuse = reuse if (reuse > 0 and self.frame_skip % reuse == 0) else 1
+
+        unported = [
+            name
+            for name, on in (
+                ("observation_noise", bool(cfg.observation_noise and cfg.observation_noise.enabled)),
+                ("motor_dynamics", bool(cfg.motor_dynamics and cfg.motor_dynamics.enable)),
+                ("pdrand_k", bool(cfg.pdrand_k)),
+                ("sim_bemf", bool(cfg.sim_bemf)),
+                ("terrain", m.nterrain > 0),
+            )
+            if on
+        ]
+        if unported:
+            raise NotImplementedError(f"not ported to the torch package yet: {unported}")
+
+        self.root_idx = m.body_names.index(self.ROOT_BODY)
+        self.head_idx = m.body_names.index(self.HEAD_BODY)
+        self.lfoot_idx = m.body_names.index(self.LFOOT_BODY)
+        self.rfoot_idx = m.body_names.index(self.RFOOT_BODY)
+        self._lslot = interface.foot_slot_mask(m, set(m.left_foot_geoms))
+        self._rslot = interface.foot_slot_mask(m, set(m.right_foot_geoms))
+
+        self.act_qpos = list(m.actuator_qpos)
+        self.act_dof = list(m.actuator_dof)
+        self.neutral_pose = torch.as_tensor(
+            np.asarray(self.nominal_qpos[np.asarray(m.actuator_qpos)], np.float32), device=self.device
+        )
+        self.robot_mass = float(np.sum(m.np("body_mass")))
+
+        nrobot = 5 + 2 * m.nu + (m.nu if self.include_torque_obs else 0)
+        self.robot_state_len = nrobot
+        self.base_obs_len = nrobot + self.num_external_obs
+        self.obs_size = self.base_obs_len * self.history_len
+
+        dyn_cfg = cfg.dynamics_randomization
+        self.dynrand_interval = (
+            int(float(dyn_cfg.interval) / self.control_dt) if (dyn_cfg and dyn_cfg.enable) else 0
+        )
+        pert_cfg = cfg.perturbation
+        self.perturb_interval = (
+            int(float(pert_cfg.interval) / self.control_dt) if (pert_cfg and pert_cfg.enable) else 0
+        )
+        if pert_cfg and pert_cfg.enable:
+            self.perturb_bodies = tuple(m.body_names.index(b) for b in pert_cfg.bodies if b in m.body_names)
+            self.perturb_force = float(pert_cfg.force_magnitude)
+            self.perturb_torque = float(pert_cfg.torque_magnitude)
+        else:
+            self.perturb_bodies = ()
+        self.init_noise = float(cfg.init_noise) if cfg.init_noise else 0.0
+
+    # --------------------------------------------------------------- gather
+
+    def _foot_grf(self, physics):
+        fmag = torch.linalg.vector_norm(physics.contact.force, dim=-1) * physics.contact.mask
+        return torch.sum(fmag * self._lslot, dim=-1), torch.sum(fmag * self._rslot, dim=-1)
+
+    def _root_local_vel_xy(self, physics):
+        v_world = physics.body_vel_world(self.root_idx)
+        return maths.quat_rotate_inv(physics.xquat[:, self.root_idx], v_world)[:, :2]
+
+    def _motor_pos(self, physics):
+        return physics.qpos[:, self.act_qpos]
+
+    def _motor_vel(self, physics):
+        return physics.qvel[:, self.act_dof]
+
+    def _robot_state(self, physics) -> torch.Tensor:
+        """roll, pitch, root angular velocity, motor pos/vel (+ torques)."""
+        rpy = maths.quat_to_rpy(physics.qpos[:, 3:7])
+        parts = [rpy[:, :2], physics.qvel[:, 3:6], self._motor_pos(physics), self._motor_vel(physics)]
+        if self.include_torque_obs:
+            parts.append(physics.act_torque)
+        return torch.cat(parts, dim=-1)
+
+    # ------------------------------------------------- domain randomization
+
+    def _sample_dynamics(self, draws, n: int) -> DynParams:
+        """Actuated-joint frictionloss ~ U(0,2) and damping ~ U(0.02,2), body
+        mass x U(0.95,1.05), CoM ipos +- 1 cm (JAX envs/humanoid.py:215)."""
+        m = self.model
+        base = default_dyn_params(m, self.kp, self.kd, n)
+        if self.dynrand_interval == 0:
+            return base
+        dev = self.device
+        fl = draws.uniform("dyn.frictionloss", (n, m.nv), 0.0, 2.0, dev)
+        dp = draws.uniform("dyn.damping", (n, m.nv), 0.02, 2.0, dev)
+        mass_scale = draws.uniform("dyn.mass_scale", (n, m.nbody), 0.95, 1.05, dev)
+        ipos_off = draws.uniform("dyn.ipos", (n, m.nbody, 3), -0.01, 0.01, dev)
+        act_mask = torch.zeros(m.nv, dtype=torch.bool, device=dev)
+        act_mask[self.act_dof] = True
+        return dataclasses.replace(
+            base,
+            dof_frictionloss=torch.where(act_mask, fl, base.dof_frictionloss),
+            dof_damping=torch.where(act_mask, dp, base.dof_damping),
+            body_mass=base.body_mass * mass_scale,
+            body_ipos=base.body_ipos + ipos_off * (base.body_mass[..., None] > 0),
+        )
+
+    def _sample_perturbation(self, draws, dyn: DynParams) -> DynParams:
+        """Random persistent wrench on configured bodies, 50% chance zeroed
+        (JAX envs/humanoid.py:238)."""
+        if not self.perturb_bodies:
+            return dyn
+        n, dev = dyn.xfrc.shape[0], dyn.xfrc.device
+        xfrc = torch.zeros_like(dyn.xfrc)
+        for i, b in enumerate(self.perturb_bodies):
+            frc = draws.uniform(f"pert.force{i}", (n, 3), -self.perturb_force, self.perturb_force, dev)
+            tau = draws.uniform(f"pert.torque{i}", (n, 3), -self.perturb_torque, self.perturb_torque, dev)
+            keep = draws.randint(f"pert.keep{i}", (n,), 0, 2, dev).to(torch.float32)
+            xfrc[:, b] = keep[:, None] * torch.cat([frc, tau], dim=-1)
+        return dataclasses.replace(dyn, xfrc=xfrc)
+
+    # ----------------------------------------------------------------- reset
+
+    def _reset_pre(self, draws, n: int, iteration):
+        """Everything before the settle substeps."""
+        m = self.model
+        dev = self.device
+        dyn = self._sample_dynamics(draws, n)
+        qpos = torch.as_tensor(np.asarray(self.nominal_qpos, np.float32), device=dev).expand(n, m.nq).clone()
+        if self.init_noise > 0:
+            c = self.init_noise * math.pi / 180.0
+            qpos[:, 2] += draws.uniform("init.height", (n,), 0.0, 0.02, dev)
+            rp = draws.uniform("init.roll_pitch", (n, 2), -c, c, dev)
+            qpos[:, 3:7] = maths.rpy_to_quat(torch.cat([rp, torch.zeros((n, 1), device=dev)], dim=-1))
+            qpos[:, self.act_qpos] += draws.uniform("init.joints", (n, m.nu), -c, c, dev)
+        physics = engine.make_state(m, qpos, torch.zeros((n, m.nv), device=dev))
+        task = self._task_reset(draws, n, iteration, physics)
+        return physics, dyn, task
+
+    def _reset_post(self, physics, dyn, task, iteration) -> EnvState:
+        m = self.model
+        n, dev = physics.qpos.shape[0], self.device
+        base_obs = torch.cat([self._robot_state(physics), self._external_obs(task)], dim=-1)
+        obs_history = torch.zeros((n, self.history_len, self.base_obs_len), device=dev)
+        obs_history[:, 0] = base_obs
+        if iteration is None:
+            iteration = torch.zeros((n,), dtype=torch.int32, device=dev)
+        return EnvState(
+            physics=physics,
+            dyn=dyn,
+            task=task,
+            obs=obs_history.reshape(n, -1),
+            obs_history=obs_history,
+            prev_prediction=torch.zeros((n, m.nu), device=dev),
+            prev_action=self.neutral_pose.expand(n, m.nu).clone(),
+            prev_torque=torch.zeros((n, m.nu), device=dev),
+            reward=torch.zeros((n,), device=dev),
+            reward_components=torch.zeros((n, len(self.reward_names)), device=dev),
+            done=torch.zeros((n,), dtype=torch.bool, device=dev),
+            steps=torch.zeros((n,), dtype=torch.int32, device=dev),
+            iteration=torch.as_tensor(iteration, dtype=torch.int32, device=dev).expand(n).clone(),
+        )
+
+    def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
+        """Fresh states for ``num_envs`` envs: initial pose and task draws, 3
+        zero-torque settle substeps at R=1 (one kernel launch), observations."""
+        physics, dyn, task = self._reset_pre(draws, num_envs, iteration)
+        zeros = torch.zeros((num_envs, self.model.nu), device=self.device)
+        physics = pd_substeps_kernel(self.model, dyn, physics, zeros, 3, self.sim_dt, settle=True)
+        return self._reset_post(physics, dyn, task, iteration)
+
+    # ------------------------------------------------------------------ step
+
+    def _pre_step(self, states: EnvState, actions: torch.Tensor) -> torch.Tensor:
+        """Action smoothing + nominal-pose offsets."""
+        targets = self.action_smoothing * actions + (1.0 - self.action_smoothing) * states.prev_prediction
+        return targets + self.neutral_pose
+
+    def step_batch(self, states: EnvState, actions: torch.Tensor, draws) -> EnvState:
+        """One control step of every env: frame_skip substeps in one kernel
+        launch, then task, reward, termination and observations."""
+        full_target = self._pre_step(states, actions)
+        physics = pd_substeps_kernel(
+            self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt,
+            reuse_interval=self.physics_reuse,
+        )
+        return self._post_step(states, physics, actions, full_target, draws)
+
+    def _post_step(self, state: EnvState, physics, actions, full_target, draws) -> EnvState:
+        task = self._task_step(draws, state.task, physics)
+        components = self._reward(state, physics, task, full_target)
+        # terminate (and reset) any env whose physics went non-finite
+        finite = torch.all(torch.isfinite(physics.qpos), dim=-1) & torch.all(torch.isfinite(physics.qvel), dim=-1)
+        components = torch.nan_to_num(components)
+        done = self._done(physics) | ~finite
+
+        base_obs = torch.nan_to_num(torch.cat([self._robot_state(physics), self._external_obs(task)], dim=-1))
+        obs_history, obs = self.stack_history(state.obs_history, base_obs)
+
+        dyn = state.dyn
+        n, dev = actions.shape[0], actions.device
+        if self.dynrand_interval > 0:
+            hit = draws.randint("dyn.event", (n,), 0, self.dynrand_interval, dev) == 0
+            new_dyn = self._sample_dynamics(draws, n)
+            dyn = tree_map(lambda a, b: torch.where(hit.reshape((n,) + (1,) * (a.dim() - 1)), a, b), new_dyn, dyn)
+        if self.perturb_interval > 0 and self.perturb_bodies:
+            hit = draws.randint("pert.event", (n,), 0, self.perturb_interval, dev) == 0
+            new_dyn = self._sample_perturbation(draws, dyn)
+            dyn = tree_map(lambda a, b: torch.where(hit.reshape((n,) + (1,) * (a.dim() - 1)), a, b), new_dyn, dyn)
+
+        return dataclasses.replace(
+            state,
+            physics=physics,
+            dyn=dyn,
+            task=task,
+            obs=obs,
+            obs_history=obs_history,
+            prev_prediction=actions,
+            prev_action=full_target,
+            prev_torque=physics.act_torque,
+            reward=torch.sum(components, dim=-1),
+            reward_components=components,
+            done=done,
+            steps=state.steps + 1,
+        )
+
+    # ----------------------------------------------------- hooks (override)
+
+    def _reward(self, state, physics, task, target) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _done(self, physics) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def load_config(name: str, path_to_json: str | None):
+    return load_json(path_to_json or os.path.join(CONFIG_DIR, name))

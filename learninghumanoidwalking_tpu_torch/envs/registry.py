@@ -1,0 +1,20 @@
+"""Environment registry (counterpart of learninghumanoidwalking_tpu/envs/registry.py).
+
+Only jvrc_walk is ported so far; the other JAX envs follow in later slices.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ENVIRONMENTS: dict[str, tuple[str, str]] = {
+    "jvrc_walk": ("learninghumanoidwalking_tpu_torch.envs.jvrc_walk", "JvrcWalkEnv"),
+}
+
+
+def make_env(name: str, path_to_json: str | None = None, device="cuda"):
+    if name not in ENVIRONMENTS:
+        raise ValueError(f"unknown env {name!r}; ported: {sorted(ENVIRONMENTS)}")
+    module_name, cls_name = ENVIRONMENTS[name]
+    cls = getattr(importlib.import_module(module_name), cls_name)
+    return cls(path_to_json, device=device)

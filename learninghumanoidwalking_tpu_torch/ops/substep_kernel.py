@@ -1,0 +1,365 @@
+"""K1, the flat-floor control-step kernel: wrapper over csrc/control_step.cu.
+
+Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
+substep_kernel.py (``make_control_step``, its ``pl.pallas_call``) on the
+flat-floor, motor-free path. One launch runs all ``frame_skip`` PD +
+physics substeps of every env, one CUDA thread per env.
+
+``pd_substeps_kernel`` has the signature of the plain version,
+physics/batched.py::pd_substeps_batched, and returns the same
+PhysicsState:
+
+* tensors on the CPU take the plain version;
+* tensors on a CUDA device launch the kernel, or raise. Nothing falls back.
+
+The model reaches the kernel as runtime tables in device memory (topology,
+offsets, inertias, actuators, contact slots), built once per model and
+device and cached by the model's CONTENT, in the table layout that the
+built library reports (caps and offsets live only in csrc/control_step.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+
+import numpy as np
+import torch
+
+from learninghumanoidwalking_tpu_torch.ops import build
+from learninghumanoidwalking_tpu_torch.physics import engine as eng
+from learninghumanoidwalking_tpu_torch.physics.batched import PROJ_REFINE_ITERS, pd_substeps_batched, valid_reuse
+from learninghumanoidwalking_tpu_torch.physics.engine import _tables
+from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, Contact, DynParams, Model, PhysicsState
+from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
+
+SOURCES = ["control_step.cu"]
+
+
+class LaunchCounter:
+    """Launches of the kernel (not of its plain version), for showing that a
+    run went through it."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+
+
+counter = LaunchCounter()
+
+
+def check_model(model: Model, lay: dict) -> None:
+    """Raise unless the kernel supports ``model`` (flat floor, within the
+    caps of the library's table layout ``lay``)."""
+    fb = {model.geom_body[g] for g in model.foot_geoms}
+    problems = []
+    if model.nterrain:
+        problems.append("terrain models need kernel K2 (not ported)")
+    if model.nbody > lay["MAX_B"] or model.nv > lay["MAX_V"] or model.nq > lay["MAX_Q"] or model.nu > lay["MAX_U"]:
+        problems.append(f"sizes nb={model.nbody} nv={model.nv} nq={model.nq} nu={model.nu} exceed caps")
+    if model.ncon > lay["MAX_C"] or len(fb) > lay["MAX_F"]:
+        problems.append(f"{model.ncon} contact slots on {len(fb)} bodies exceed caps {lay['MAX_C']}/{lay['MAX_F']}")
+    if problems:
+        raise ValueError("control-step kernel cannot run this model: " + "; ".join(problems))
+
+
+def build_tables(model: Model, lay: dict) -> tuple[np.ndarray, np.ndarray]:
+    """(float table, int table) encoding ``model`` for the kernel, in the
+    library's table layout ``lay``."""
+    check_model(model, lay)
+    t = _tables(model)
+    ft = np.zeros(lay["N_FTAB"], np.float32)
+    it = np.zeros(lay["N_ITAB"], np.int32)
+    nb, nv, nu, nc = model.nbody, model.nv, model.nu, model.ncon
+    foot_bodies = []
+    for gi in model.foot_geoms:
+        if model.geom_body[gi] not in foot_bodies:
+            foot_bodies.append(model.geom_body[gi])
+    for key, val in zip(("I_NB", "I_NV", "I_NQ", "I_NU", "I_NC", "I_NFOOT"), (nb, nv, model.nq, nu, nc, len(foot_bodies))):
+        it[lay[key]] = val
+    it[lay["I_PARENT"] : lay["I_PARENT"] + nb] = model.body_parent
+    it[lay["I_JTYPE"] : lay["I_JTYPE"] + nb] = model.jnt_type
+    it[lay["I_QADR"] : lay["I_QADR"] + nb] = model.body_qpos_adr
+    it[lay["I_DADR"] : lay["I_DADR"] + nb] = model.body_dof_adr
+    it[lay["I_DNUM"] : lay["I_DNUM"] + nb] = model.body_dof_num
+    it[lay["I_DOFBODY"] : lay["I_DOFBODY"] + nv] = model.dof_body
+    act_of_dof = np.full(nv, -1, np.int32)
+    for a, d in enumerate(model.actuator_dof):
+        act_of_dof[d] = a
+    it[lay["I_ACTOFDOF"] : lay["I_ACTOFDOF"] + nv] = act_of_dof
+    for d in range(nv):
+        bi = model.dof_body[d]
+        jt = model.jnt_type[bi]
+        k = d - model.body_dof_adr[bi]
+        kind = {FREE: "DOF_FREE_LIN" if k < 3 else "DOF_FREE_ANG", HINGE: "DOF_HINGE", SLIDE: "DOF_SLIDE"}[jt]
+        it[lay["I_DOFKIND"] + d] = lay[kind]
+        it[lay["I_DOFK"] + d] = k % 3 if jt == FREE else 0
+    it[lay["I_ACTQ"] : lay["I_ACTQ"] + nu] = model.actuator_qpos
+    it[lay["I_ACTD"] : lay["I_ACTD"] + nu] = model.actuator_dof
+    it[lay["I_FOOTBODY"] : lay["I_FOOTBODY"] + len(foot_bodies)] = foot_bodies
+    anc = np.zeros((lay["MAX_B"], lay["MAX_V"]), np.int32)
+    anc[:nb, :nv] = t["anc"] > 0.5
+    it[lay["I_ANC"] : lay["I_ANC"] + anc.size] = anc.reshape(-1)
+
+    h = model.host
+    imp_min, imp_max = float(h["imp_min"]), float(h["imp_max"])
+    timeconst, dampratio = float(h["timeconst"]), float(h["dampratio"])
+    ft[lay["F_GRAV"] : lay["F_GRAV"] + 3] = h["gravity"]
+    ft[lay["F_IMPMIN"]] = imp_min
+    ft[lay["F_IMPDIFF"]] = imp_max - imp_min
+    ft[lay["F_WIDTH"]] = float(h["imp_width"])
+    ft[lay["F_KREF"]] = 1.0 / max(imp_max**2 * timeconst**2 * dampratio**2, 1e-12)
+    ft[lay["F_BREF"]] = 2.0 / max(imp_max * timeconst, 1e-12)
+    ft[lay["F_BPOS"] : lay["F_BPOS"] + 3 * nb] = h["body_pos"].reshape(-1)
+    ft[lay["F_BQUAT"] : lay["F_BQUAT"] + 4 * nb] = h["body_quat"].reshape(-1)
+    ft[lay["F_JAXIS"] : lay["F_JAXIS"] + 3 * nb] = h["jnt_axis"].reshape(-1)
+    ft[lay["F_JPOS"] : lay["F_JPOS"] + 3 * nb] = h["jnt_pos"].reshape(-1)
+    ft[lay["F_BINER"] : lay["F_BINER"] + 3 * nb] = h["body_inertia"].reshape(-1)
+    iq = np.stack([_quat_to_mat_np(q) for q in h["body_iquat"]]).astype(np.float32)
+    ft[lay["F_IQMAT"] : lay["F_IQMAT"] + 9 * nb] = iq.reshape(-1)
+    ft[lay["F_BMASS0"] : lay["F_BMASS0"] + nb] = np.maximum(h["body_mass"], np.float32(1e-9))
+    ft[lay["F_ARM"] : lay["F_ARM"] + nv] = h["dof_armature"]
+    ft[lay["F_GEAR"] : lay["F_GEAR"] + nu] = h["actuator_gear"]
+    ft[lay["F_CLO"] : lay["F_CLO"] + nu] = h["actuator_ctrlrange"][:, 0]
+    ft[lay["F_CHI"] : lay["F_CHI"] + nu] = h["actuator_ctrlrange"][:, 1]
+    slot = 0
+    for gi in model.foot_geoms:
+        grot = _quat_to_mat_np(h["geom_quat"][gi]).astype(np.float32)
+        for corner in eng._BOTTOM_CORNERS:
+            it[lay["I_SLOTFOOT"] + slot] = foot_bodies.index(model.geom_body[gi])
+            ft[lay["F_SGPOS"] + 3 * slot : lay["F_SGPOS"] + 3 * slot + 3] = h["geom_pos"][gi]
+            ft[lay["F_SGROT"] + 9 * slot : lay["F_SGROT"] + 9 * slot + 9] = grot.reshape(-1)
+            ft[lay["F_SCORN"] + 3 * slot : lay["F_SCORN"] + 3 * slot + 3] = corner * h["geom_size"][gi]
+            ft[lay["F_MU"] + slot] = h["geom_friction"][gi]
+            slot += 1
+    return ft, it
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def device_tables(model: Model, device: torch.device, lay: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The model's tables in device memory, uploaded once per (content, device)."""
+    ft, it = build_tables(model, lay)
+    key = (hashlib.sha256(ft.tobytes() + it.tobytes()).hexdigest(), str(device))
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES[key] = (
+            torch.as_tensor(ft, device=device),
+            torch.as_tensor(it, device=device),
+        )
+    return _DEVICE_TABLES[key]
+
+
+_LIB: dict = {}
+
+
+def _library() -> tuple[ctypes.CDLL, dict]:
+    """Build (first use) and load the kernel library; (library, its table layout)."""
+    if not _LIB:
+        path, _ = build.build_library("lhw_control_step", SOURCES)
+        lib = build.load_library(path)
+        lib.lhw_control_step_layout.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.lhw_control_step_layout.restype = ctypes.c_int
+        cap = 128
+        names, values = (ctypes.c_char_p * cap)(), (ctypes.c_int * cap)()
+        n = lib.lhw_control_step_layout(names, values, cap)
+        if not 0 < n <= cap:
+            raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
+        lib.lhw_control_step.argtypes = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 26
+        lib.lhw_control_step.restype = ctypes.c_int
+        _LIB.update(lib=lib, layout={names[k].decode(): values[k] for k in range(n)})
+    return _LIB["lib"], _LIB["layout"]
+
+
+def build_seconds_and_path() -> tuple[float, str]:
+    """Build the library if needed; (nvcc seconds of this call, library path)."""
+    path, seconds = build.build_library("lhw_control_step", SOURCES)
+    _library()
+    return seconds, str(path)
+
+
+def _trailing(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) -> (rows, B) contiguous."""
+    return x.reshape(x.shape[0], -1).t().contiguous()
+
+
+def _check_inputs(model: Model, tensors: dict, batch: int, device: torch.device) -> None:
+    rows = dict(
+        qpos=model.nq, qvel=model.nv, target=model.nu, kp=model.nu, kd=model.nu, bemf=model.nu,
+        damping=model.nv, frictionloss=model.nv, body_mass=model.nbody, body_ipos=3 * model.nbody,
+        xfrc=6 * model.nbody,
+    )
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name}: on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {x.dtype}, the kernel takes float32")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        if tuple(x.shape) != (rows[name], batch):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {(rows[name], batch)}")
+
+
+def control_step_launch(
+    model: Model, inputs: dict, frame_skip: int, sim_dt: float, settle: bool, reuse: int
+) -> dict:
+    """Launch K1 on trailing-batch (rows, B) float32 CUDA tensors; returns the
+    12 outputs as (rows, B) tensors. Launches on the current stream and does
+    not synchronize."""
+    qpos = inputs["qpos"]
+    device = qpos.device
+    if device.type != "cuda":
+        raise ValueError(f"control_step_launch takes CUDA tensors, got {device}")
+    batch = qpos.shape[1]
+    _check_inputs(model, inputs, batch, device)
+    lib, lay = _library()
+    ftab, itab = device_tables(model, device, lay)
+    nc = model.ncon
+    out_rows = dict(
+        qpos=model.nq, qvel=model.nv, qacc=model.nv, act_torque=model.nu, cforce=3 * nc, cdist=nc,
+        cmask=nc, cpos=3 * nc, cnormal=3 * nc, xpos=3 * model.nbody, xquat=4 * model.nbody,
+        cvel=6 * model.nbody,
+    )
+    outs = {k: torch.empty((r, batch), dtype=torch.float32, device=device) for k, r in out_rows.items()}
+    order_in = ("qpos", "qvel", "target", "kp", "kd", "bemf", "damping", "frictionloss", "body_mass", "body_ipos", "xfrc")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.lhw_control_step(
+            batch, int(frame_skip), int(valid_reuse(frame_skip, reuse)), int(bool(settle)), float(sim_dt),
+            ftab.data_ptr(), itab.data_ptr(),
+            *[inputs[k].data_ptr() for k in order_in],
+            *[outs[k].data_ptr() for k in out_rows],
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"control-step kernel launch failed: cudaError {err}")
+    counter.launches += 1
+    return outs
+
+
+def pd_substeps_kernel(
+    model: Model,
+    params: DynParams,
+    physics: PhysicsState,
+    target: torch.Tensor,
+    frame_skip: int,
+    sim_dt: float,
+    settle: bool = False,
+    reuse_interval: int = 1,
+) -> PhysicsState:
+    """Drop-in for physics/batched.py::pd_substeps_batched through K1.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    device = physics.qpos.device
+    if device.type == "cpu":
+        return pd_substeps_batched(
+            model, params, physics, target, frame_skip, sim_dt, settle=settle, reuse_interval=reuse_interval
+        )
+    if device.type != "cuda":
+        raise ValueError(f"pd_substeps_kernel: unsupported device {device}")
+    batch = physics.qpos.shape[0]
+    inputs = dict(
+        qpos=_trailing(physics.qpos),
+        qvel=_trailing(physics.qvel),
+        target=_trailing(target),
+        kp=_trailing(params.kp),
+        kd=_trailing(params.kd),
+        bemf=_trailing(params.bemf_gain),
+        damping=_trailing(params.dof_damping),
+        frictionloss=_trailing(params.dof_frictionloss),
+        body_mass=_trailing(params.body_mass),
+        body_ipos=_trailing(params.body_ipos),
+        xfrc=_trailing(params.xfrc),
+    )
+    out = control_step_launch(model, inputs, frame_skip, sim_dt, settle, reuse_interval)
+    nc, nb = model.ncon, model.nbody
+    lead = lambda x, *shape: x.t().reshape(batch, *shape)
+    contact = Contact(
+        pos=lead(out["cpos"], nc, 3),
+        frame=torch.as_tensor(eng._Z_FRAME, device=device).expand(batch, nc, 3, 3),
+        dist=lead(out["cdist"], nc),
+        geom=torch.as_tensor(eng.slot_geoms(model), dtype=torch.int32, device=device).expand(batch, -1),
+        force=lead(out["cforce"], nc, 3),
+        mask=lead(out["cmask"], nc),
+    )
+    return PhysicsState(
+        qpos=lead(out["qpos"], model.nq),
+        qvel=lead(out["qvel"], model.nv),
+        qacc=lead(out["qacc"], model.nv),
+        act_torque=lead(out["act_torque"], model.nu),
+        xpos=lead(out["xpos"], nb, 3),
+        xquat=lead(out["xquat"], nb, 4),
+        cvel=lead(out["cvel"], nb, 6),
+        contact=contact,
+        time=physics.time + frame_skip * sim_dt,
+    )
+
+
+# ---------------------------------------------------------------------------
+# analytic work of one launch, for the roofline bound
+# ---------------------------------------------------------------------------
+
+
+def flops_per_env_substep(model: Model, reuse: int) -> float:
+    """Float operations that one env-substep needs, the refresh work amortized
+    over the reuse group R (an FMA counts 2; a divide or sqrt 4; sin, cos 8).
+
+    This is the least work of the step, not what K1 executes: the contact
+    solve is counted in the Woodbury form of the Pallas kernel
+    (learninghumanoidwalking_tpu/ops/substep_kernel.py:765-856), which
+    factors the 12x12 foot-basis Gram at refresh and a 12x12 inner system per
+    substep. K1 solves the dense 3nc x 3nc system of physics/batched.py, which
+    takes more operations. Projected solves as in physics/batched.py."""
+    nb, nv, nu, nc = model.nbody, model.nv, model.nu, model.ncon
+    anc = _tables(model)["anc"] > 0.5
+    npairs = sum(1 for d in range(nv) for e in range(d + 1) if anc[model.dof_body[d], e])
+    feet = list(dict.fromkeys(model.geom_body[g] for g in model.foot_geoms))
+    nk, n3 = 6 * len(feet), 3 * nc
+
+    def chol(n):  # Cholesky: (n^3 - n)/6 FMAs, n sqrt, n(n-1)/2 divides
+        return (n**3 - n) / 3 + 4 * n + 2 * n * (n - 1)
+
+    def fwd(n):  # one triangular solve
+        return n * (n - 1) + 4 * n
+
+    # common body: PD torque, FK, motion subspace, body velocities, world
+    # inertias with mass/CoM randomization, RNE bias and applied wrenches
+    per = nu * 12
+    per += nb * (2 * 30 + 28 + 16 + 60 + 12 + 4 * 4 + 30) + nv * (40 + 12)
+    per += nb * (54 + 54 + 18 + 27 + 8) + nb * (36 + 2 * 36 + 24 + 12) + nv * (12 + 2 + 8 + 4)
+    # refresh: CRBA + armature + damping, Cholesky, Y = L^-1 B, Gram, its Cholesky
+    refresh = nb * 13 + nv * 36 + npairs * 12 + 2 * nv + chol(nv)
+    refresh += nk * fwd(nv) + nk * (nk + 1) / 2 * 2 * nv + chol(nk)
+    per += refresh / max(reuse, 1)
+    per += 2 * fwd(nv)  # smooth qacc
+    # contact rows: each is a 3-term expansion over its foot's 6 basis keys
+    # (slot_coeffs_static); Chat = mask * C LG is lower-triangular in its key
+    row_keys = []
+    slot_foot = [feet.index(model.geom_body[g]) for g in eng.slot_geoms(model)]
+    for c in range(nc):
+        base = 6 * slot_foot[c]
+        row_keys += [[base + 5, base + 1, base], [base + 3, base + 2, base + 1], [base + 4, base, base + 2]]
+    terms = np.array([[sum(r >= k for r in keys) for k in range(nk)] for keys in row_keys])
+    nz = terms > 0
+    nnz = int(nz.sum())
+    per += nc * (38 + 10) + 2 * nk * (2 * nv - 1) + n3 * 47  # corners, u_vel/u_acc, aref, R, b, D
+    per += int(2 * terms.sum()) + 4 * n3  # Chat, D^-1
+    per += nnz + 2 * sum(int((nz[:, a] & nz[:, b]).sum()) for a in range(nk) for b in range(a, nk)) + nk
+    per += chol(nk)  # K = I + Chat^T D^-1 Chat and its Cholesky
+    iters = PROJ_REFINE_ITERS
+    apply_ainv = 4 * nnz + 3 * n3 + 2 * fwd(nk)
+    apply_a = 4 * nnz + n3
+    per += iters * (apply_ainv + nc * 20) + (iters - 1) * (apply_a + 2 * n3)
+    per += 6 * n3 + nk * 2 * nv + 2 * fwd(nv) + nv  # J^T f through the basis, constraint qacc
+    per += nv * 4 + 60  # semi-implicit Euler, quaternion integration
+    return float(per)
+
+
+def bytes_per_launch(model: Model, batch: int) -> int:
+    """Bytes the launch must move: each input read once, each output written once."""
+    nb, nv, nq, nu, nc = model.nbody, model.nv, model.nq, model.nu, model.ncon
+    rows_in = nq + nv + 4 * nu + 2 * nv + nb + 3 * nb + 6 * nb
+    rows_out = nq + 2 * nv + nu + 3 * nc + 2 * nc + 6 * nc + 3 * nb + 4 * nb + 6 * nb
+    return 4 * batch * (rows_in + rows_out)

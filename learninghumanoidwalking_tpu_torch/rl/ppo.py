@@ -1,0 +1,367 @@
+"""PPO (clip objective), feed-forward path (counterpart of learninghumanoidwalking_tpu/rl/ppo.py).
+
+Same iteration as the JAX trainer: a rollout of ``rollout_len`` steps over
+the persistent env batch with a rotated per-iteration reset pool and a
+carried V(s_t), GAE, batch-normalized advantages, then ``epochs`` passes of
+minibatched updates (clipped surrogate, value MSE, entropy bonus, mirror
+loss), each network with its own Adam after global-norm clipping and a
+skip on non-finite gradients. The JAX ``scan``s are Python loops; the
+trainer state lives on ``device``.
+
+Not ported yet: recurrent policies, imitation, eval rollouts, checkpoints,
+the logger and the profiler hook.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
+from learninghumanoidwalking_tpu_torch.physics.model import tree_map
+from learninghumanoidwalking_tpu_torch.rl import networks
+from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
+from learninghumanoidwalking_tpu_torch.rl.mirror import obs_symmetry_matrix, symmetry_matrix
+from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm, init_norm, update_norm
+from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
+
+
+@dataclasses.dataclass
+class PPOConfig:
+    """Hyperparameters; defaults are the JAX PPOConfig's."""
+
+    n_itr: int = 20000
+    lr: float = 3e-4
+    eps: float = 1e-5  # Adam epsilon
+    gamma: float = 0.99
+    lam: float = 0.95
+    std_dev: float = 0.223
+    learn_std: bool = False
+    entropy_coeff: float = 0.0
+    clip: float = 0.2
+    minibatch_size: int = 4096
+    epochs: int = 3
+    num_envs: int = 512
+    rollout_len: int = 64
+    max_traj_len: int = 400
+    max_grad_norm: float = 0.5
+    mirror_coeff: float = 0.4
+    use_mirror: bool = True
+    input_norm_iters: int = 5
+    seed: int = 0
+    # "slice": contiguous minibatches of the (time-major, env-minor) batch
+    # visited in a random order (the JAX default); "shuffle": a random
+    # permutation of all samples per epoch
+    minibatch_scheme: str = "slice"
+    # compute precision of the hidden matmuls ("bfloat16" on the card, the
+    # JAX default; "float32" for parity runs)
+    net_dtype: str = "bfloat16"
+    hidden: tuple = (256, 256)
+
+    @property
+    def batch_size(self) -> int:
+        return self.num_envs * self.rollout_len
+
+
+class Adam:
+    """Adam over a parameter list, preceded by global-norm clipping and
+    skipped (state untouched) when the gradients are not finite — optax's
+    apply_if_finite(chain(clip_by_global_norm, adam)) as the JAX trainer
+    builds it. Written out so the skip needs no host synchronization."""
+
+    def __init__(self, params: list, lr: float, eps: float, max_grad_norm: float, b1=0.9, b2=0.999):
+        self.params = params
+        self.lr, self.eps, self.max_norm, self.b1, self.b2 = lr, eps, max_grad_norm, b1, b2
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = torch.zeros((), device=params[0].device)
+
+    @torch.no_grad()
+    def step(self, grads: list) -> None:
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        finite = torch.isfinite(g_norm)
+        trigger = g_norm < self.max_norm
+        grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm) for g in grads]
+        count = torch.where(finite, self.count + 1, self.count)
+        bc1 = 1 - self.b1**count
+        bc2 = 1 - self.b2**count
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            mu = self.b1 * self.mu[i] + (1 - self.b1) * g
+            nu = self.b2 * self.nu[i] + (1 - self.b2) * (g * g)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.copy_(torch.where(finite, p - self.lr * update, p))
+            self.mu[i] = torch.where(finite, mu, self.mu[i])
+            self.nu[i] = torch.where(finite, nu, self.nu[i])
+        self.count = count
+
+
+@dataclasses.dataclass
+class TrainState:
+    actor: networks.GaussianActor
+    critic: networks.Critic
+    actor_opt: Adam
+    critic_opt: Adam
+    norm: RunningNorm
+    env_state: EnvState  # batched (num_envs leading)
+    iteration: int
+
+
+@dataclasses.dataclass
+class Batch:
+    obs: torch.Tensor  # (T, B, O)
+    actions: torch.Tensor  # (T, B, A)
+    log_probs: torch.Tensor  # (T, B)
+    advantages: torch.Tensor  # (T, B)
+    returns: torch.Tensor  # (T, B)
+
+
+def _tree_where(pred: torch.Tensor, a, b):
+    """Select tree a where pred (B,) else b; leaves are (B, ...)."""
+
+    def sel(x, y):
+        if not torch.is_tensor(x):
+            return x
+        return torch.where(pred.reshape(pred.shape + (1,) * (x.dim() - 1)), x, y)
+
+    return tree_map(sel, a, b)
+
+
+class PPO:
+    """PPO trainer bound to one env, on ``device``; randomness from ``draws``."""
+
+    def __init__(self, env: Env, config: PPOConfig, device: str | torch.device = "cuda", draws: Draws | None = None):
+        self.env = env
+        self.cfg = config
+        self.device = torch.device(device)
+        if draws is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(config.seed)
+            draws = Draws(gen)
+        self.draws = draws
+        self.net_dtype = getattr(torch, config.net_dtype)
+        self.obs_mirror = None
+        self.act_mirror = None
+        if config.use_mirror and env.mirrored_obs is not None:
+            self.obs_mirror = torch.as_tensor(
+                obs_symmetry_matrix(env.mirrored_obs, env.clock_inds, env.history_len), device=self.device
+            )
+            self.act_mirror = torch.as_tensor(symmetry_matrix(env.mirrored_acts), device=self.device)
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self, gen: torch.Generator | None = None) -> TrainState:
+        cfg = self.cfg
+        if gen is None:
+            gen = torch.Generator(device="cpu")
+            gen.manual_seed(cfg.seed)
+        actor = networks.GaussianActor(
+            self.env.obs_size, self.env.action_size, cfg.hidden, cfg.std_dev, cfg.learn_std, self.net_dtype, gen
+        ).to(self.device)
+        critic = networks.Critic(self.env.obs_size, cfg.hidden, self.net_dtype, gen).to(self.device)
+        if self.env.obs_mean is not None:
+            norm = init_norm(None, self.env.obs_mean, self.env.obs_std, device=self.device)
+        else:
+            norm = init_norm((self.env.obs_size,), device=self.device)
+        env_state = self.env.reset_batch(cfg.num_envs, self.draws)
+        return TrainState(
+            actor=actor,
+            critic=critic,
+            actor_opt=Adam(list(actor.parameters()), cfg.lr, cfg.eps, cfg.max_grad_norm),
+            critic_opt=Adam(list(critic.parameters()), cfg.lr, cfg.eps, cfg.max_grad_norm),
+            norm=norm,
+            env_state=env_state,
+            iteration=0,
+        )
+
+    # --------------------------------------------------------------- rollout
+
+    def _policy(self, actor, norm, obs):
+        return actor(norm.normalize(obs))
+
+    def _value(self, critic, norm, obs):
+        return critic(norm.normalize(obs))
+
+    @torch.no_grad()
+    def _rollout(self, ts: TrainState, deterministic: bool):
+        """rollout_len steps over the persistent env batch. Envs that finish
+        are replaced from a reset pool made once per iteration and rotated
+        across the batch by the iteration index; V(s_t) is carried."""
+        cfg = self.cfg
+        n = cfg.num_envs
+        pool = self.env.reset_batch(n, self.draws, ts.iteration)
+        shift = ts.iteration
+        pool = tree_map(lambda x: torch.roll(x, shift, dims=0) if torch.is_tensor(x) else x, pool)
+        pool_values = self._value(ts.critic, ts.norm, pool.obs)
+        value = self._value(ts.critic, ts.norm, ts.env_state.obs)
+
+        env_state = ts.env_state
+        ep_ret = torch.zeros(n, device=self.device)
+        keys = ("obs", "action", "log_prob", "value", "next_value", "reward", "terminated", "done", "ep_steps", "ep_return")
+        traj = {k: [] for k in keys}
+        for _ in range(cfg.rollout_len):
+            obs = env_state.obs
+            mean, log_std = self._policy(ts.actor, ts.norm, obs)
+            if deterministic:
+                action = mean
+            else:
+                action = mean + torch.exp(log_std) * self.draws.normal("action", tuple(mean.shape), self.device)
+            log_prob = networks.gaussian_logp(mean, log_std, action)
+
+            stepped = self.env.step_batch(env_state, action, self.draws)
+            next_value = self._value(ts.critic, ts.norm, stepped.obs)
+
+            terminated = stepped.done
+            truncated = (stepped.steps >= cfg.max_traj_len) & ~terminated
+            done = terminated | truncated
+
+            reset_state = dataclasses.replace(pool, iteration=stepped.iteration)
+            env_state = _tree_where(done, reset_state, stepped)
+            ep_ret = ep_ret + stepped.reward
+            for k, x in zip(keys, (obs, action, log_prob, value, next_value, stepped.reward, terminated, done,
+                                   stepped.steps, torch.where(done, ep_ret, torch.zeros_like(ep_ret)))):
+                traj[k].append(x)
+            ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
+            value = torch.where(done, pool_values, next_value)
+        return env_state, {k: torch.stack(v) for k, v in traj.items()}
+
+    def _sample_iteration(self, ts: TrainState):
+        env_state, traj = self._rollout(ts, deterministic=False)
+        advantages, returns = compute_gae(
+            traj["reward"], traj["value"], traj["next_value"], traj["terminated"], traj["done"],
+            self.cfg.gamma, self.cfg.lam,
+        )
+        advantages = (advantages - torch.mean(advantages)) / (torch.std(advantages, unbiased=False) + 1e-5)
+        batch = Batch(
+            obs=traj["obs"], actions=traj["action"], log_probs=traj["log_prob"],
+            advantages=advantages, returns=returns,
+        )
+        env_state = dataclasses.replace(env_state, iteration=env_state.iteration + 1)
+        ts = dataclasses.replace(ts, env_state=env_state, iteration=ts.iteration + 1)
+
+        done_f = traj["done"].to(torch.float32)
+        n_done = torch.sum(done_f)
+        roll_metrics = dict(
+            mean_reward=torch.mean(traj["reward"]),
+            mean_episode_length=torch.sum(done_f * traj["ep_steps"]) / torch.clamp_min(n_done, 1.0),
+            episodes_finished=n_done,
+            episode_reward=torch.sum(traj["ep_return"]) / torch.clamp_min(n_done, 1.0),
+        )
+        return ts, batch, roll_metrics
+
+    # ---------------------------------------------------------------- update
+
+    def _loss_fn(self, actor, critic, norm, mb):
+        cfg = self.cfg
+        obs, actions, old_log_probs, advantages, returns = mb
+        mean, log_std = self._policy(actor, norm, obs)
+        log_probs = networks.gaussian_logp(mean, log_std, actions)
+        ratio = torch.exp(log_probs - old_log_probs)
+
+        surr1 = ratio * advantages
+        surr2 = torch.clamp(ratio, 1.0 - cfg.clip, 1.0 + cfg.clip) * advantages
+        actor_loss = -torch.mean(torch.minimum(surr1, surr2))
+        clip_fraction = torch.mean((torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32))
+
+        values = critic(norm.normalize(obs))
+        critic_loss = torch.mean(torch.square(returns - values))
+        entropy = torch.mean(networks.gaussian_entropy(log_std))
+
+        if self.obs_mirror is not None:
+            mir_mean, _ = self._policy(actor, norm, obs @ self.obs_mirror.T)
+            mirror_loss = torch.mean(torch.square(mean - mir_mean @ self.act_mirror.T))
+        else:
+            mirror_loss = torch.zeros((), device=obs.device)
+
+        log_ratio = log_probs - old_log_probs
+        approx_kl = torch.mean((ratio - 1.0) - log_ratio)
+
+        total = actor_loss + cfg.mirror_coeff * mirror_loss - cfg.entropy_coeff * entropy + critic_loss
+        aux = dict(
+            actor_loss=actor_loss, critic_loss=critic_loss, entropy=entropy, mirror_loss=mirror_loss,
+            approx_kl=approx_kl, clip_fraction=clip_fraction,
+        )
+        return total, aux
+
+    def _update(self, ts: TrainState, batch: Batch, perms: list | None = None):
+        """``epochs`` passes of minibatched updates. ``perms`` (one per
+        epoch) fixes the minibatch order: for "slice", a permutation of the
+        minibatch indices; for "shuffle", of all samples."""
+        cfg = self.cfg
+        n = cfg.batch_size
+        mb_size = min(cfg.minibatch_size, n)
+        n_mb = max(n // mb_size, 1)
+        flat = [x.reshape((n,) + tuple(x.shape[2:])) for x in
+                (batch.obs, batch.actions, batch.log_probs, batch.advantages, batch.returns)]
+        a_params = list(ts.actor.parameters())
+        c_params = list(ts.critic.parameters())
+        sums: dict[str, torch.Tensor] = {}
+        for epoch in range(cfg.epochs):
+            if cfg.minibatch_scheme == "slice":
+                perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n_mb, self.device)
+                index_sets = [slice(int(i) * mb_size, int(i) * mb_size + mb_size) for i in perm.tolist()]
+            else:
+                perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n, self.device)
+                index_sets = list(perm[: n_mb * mb_size].reshape(n_mb, mb_size))
+            for idx in index_sets:
+                mb = tuple(x[idx] for x in flat)
+                total, aux = self._loss_fn(ts.actor, ts.critic, ts.norm, mb)
+                grads = torch.autograd.grad(total, a_params + c_params)
+                ts.actor_opt.step(list(grads[: len(a_params)]))
+                ts.critic_opt.step(list(grads[len(a_params) :]))
+                for k, v in aux.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach()
+        count = cfg.epochs * n_mb
+        return ts, {k: v / count for k, v in sums.items()}
+
+    def _optimize_iteration(self, ts: TrainState, batch: Batch, perms: list | None = None):
+        ts, metrics = self._update(ts, batch, perms)
+        with torch.no_grad():
+            _, log_std = self._policy(ts.actor, ts.norm, batch.obs[0, :1])
+        metrics["mean_noise_std"] = torch.mean(torch.exp(log_std))
+        return ts, metrics
+
+    def _warmup_iteration(self, ts: TrainState) -> TrainState:
+        """Obs-norm warmup: rollout + Welford update, no learning."""
+        env_state, traj = self._rollout(ts, deterministic=False)
+        return dataclasses.replace(ts, env_state=env_state, norm=update_norm(ts.norm, traj["obs"]))
+
+    # ----------------------------------------------------------------- train
+
+    def warmup_iterations(self) -> int:
+        """Obs-norm warmup iterations ``train`` runs (running-norm envs only)."""
+        return self.cfg.input_norm_iters if self.env.obs_mean is None else 0
+
+    def train(self, n_itr: int | None = None, ts: TrainState | None = None, verbose: bool = True, on_iteration=None):
+        """Warmup, then ``n_itr`` iterations of sampling + optimization.
+        Returns (final TrainState, per-iteration metrics). Each iteration's
+        times are taken after a device synchronization."""
+        cfg = self.cfg
+        n_itr = cfg.n_itr if n_itr is None else n_itr
+        ts = self.init_state() if ts is None else ts
+        for _ in range(self.warmup_iterations()):
+            ts = self._warmup_iteration(ts)
+        history = []
+        for itr in range(n_itr):
+            t0 = time.time()
+            ts, batch, roll = self._sample_iteration(ts)
+            roll = {k: float(v) for k, v in roll.items()}
+            t1 = time.time()
+            ts, aux = self._optimize_iteration(ts, batch)
+            aux = {k: float(v) for k, v in aux.items()}
+            t2 = time.time()
+            metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
+                       "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9)}
+            history.append(metrics)
+            if verbose:
+                print(
+                    f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "
+                    f"ep_len {metrics['mean_episode_length']:.1f} | actor {metrics['actor_loss']:.4f} | "
+                    f"critic {metrics['critic_loss']:.4f} | kl {metrics['approx_kl']:.4f} | "
+                    f"sample {metrics['sample_env_steps_per_s']:,.0f} env-steps/s | optimize {t2 - t1:.2f} s",
+                    flush=True,
+                )
+            if on_iteration is not None:
+                on_iteration(itr, metrics)
+        return ts, history

@@ -1,0 +1,170 @@
+"""The port's networks, losses, GAE, Welford merge and update step against
+the JAX trainer, with weights carried over by rl/convert.py.
+
+All inputs are numpy arrays from a fixed seed; the minibatch order of the
+update is replayed from the JAX key schedule. Networks run in float32 on
+both sides (TF32 off). Tolerances: GAE and the Welford merge 1e-6 (same
+f32 recurrences); network outputs 1e-5 absolute; loss components and
+gradients 1e-4 relative to each quantity's largest magnitude; parameters
+after one update 1e-4 relative (two Adam steps on those gradients).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from learninghumanoidwalking_tpu.envs.jvrc_walk import JvrcWalkEnv as JaxJvrcWalkEnv
+from learninghumanoidwalking_tpu.rl import gae as jgae
+from learninghumanoidwalking_tpu.rl import normalize as jnorm
+from learninghumanoidwalking_tpu.rl import ppo as jppo
+from learninghumanoidwalking_tpu_torch.envs.jvrc_walk import JvrcWalkEnv
+from learninghumanoidwalking_tpu_torch.rl import convert, networks, normalize, ppo
+from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
+
+N_MB = 64  # samples per loss evaluation
+
+
+@pytest.fixture(scope="module")
+def setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    jenv = JaxJvrcWalkEnv()
+    tenv = JvrcWalkEnv(device="cpu")
+    kw = dict(num_envs=8, rollout_len=4, minibatch_size=16, epochs=1, net_dtype="float32")
+    j = jppo.PPO(jenv, jppo.PPOConfig(**kw))
+    t = ppo.PPO(tenv, ppo.PPOConfig(**kw), device="cpu")
+    ka, kc = jax.random.split(jax.random.PRNGKey(0))
+    dummy = jnp.zeros((1, jenv.obs_size))
+    a_params = j.actor_def.init(ka, dummy)
+    c_params = j.critic_def.init(kc, dummy)
+    actor = networks.GaussianActor(tenv.obs_size, tenv.action_size)
+    critic = networks.Critic(tenv.obs_size)
+    actor.load_state_dict(convert.actor_state_dict(convert.flatten_params(a_params), tenv.action_size))
+    critic.load_state_dict(convert.critic_state_dict(convert.flatten_params(c_params)))
+    jn = jnorm.init_norm(None, jenv.obs_mean, jenv.obs_std)
+    tn = convert.running_norm(jn.mean, jn.var, jn.count)
+    return j, t, a_params, c_params, actor, critic, jn, tn
+
+
+def _minibatch(seed, n=N_MB):
+    rng = np.random.default_rng(seed)
+    obs = (rng.standard_normal((n, 37)) * 0.5).astype(np.float32)
+    obs[:, 29:31] = np.clip(obs[:, 29:31], -1, 1)
+    actions = (0.3 * rng.standard_normal((n, 12))).astype(np.float32)
+    old_lp = (rng.standard_normal(n) * 0.5 + 8.0).astype(np.float32)
+    adv = rng.standard_normal(n).astype(np.float32)
+    ret = rng.standard_normal(n).astype(np.float32)
+    return obs, actions, old_lp, adv, ret
+
+
+def _rel_close(mine, theirs, rel):
+    mine, theirs = np.asarray(mine), np.asarray(theirs)
+    scale = max(float(np.max(np.abs(theirs))), 1e-8)
+    assert mine.shape == theirs.shape
+    assert float(np.max(np.abs(mine - theirs))) <= rel * scale, (np.max(np.abs(mine - theirs)), scale)
+
+
+def test_gae_matches_jax():
+    rng = np.random.default_rng(0)
+    T, B = 6, 9
+    r, v, nv = (rng.standard_normal((T, B)).astype(np.float32) for _ in range(3))
+    term = rng.random((T, B)) < 0.2
+    done = term | (rng.random((T, B)) < 0.1)
+    ja, jr = jgae.compute_gae(*map(jnp.asarray, (r, v, nv, term, done)), 0.99, 0.95)
+    ta, tr = compute_gae(*map(torch.as_tensor, (r, v, nv, term, done)), 0.99, 0.95)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
+
+
+def test_welford_merge_matches_jax():
+    rng = np.random.default_rng(1)
+    mean, std = rng.standard_normal(5).astype(np.float32), rng.uniform(0.5, 2, 5).astype(np.float32)
+    batch = (rng.standard_normal((3, 7, 5)) * 2 + 1).astype(np.float32)
+    j = jnorm.update_norm(jnorm.RunningNorm(mean=jnp.asarray(mean), var=jnp.asarray(std**2), count=jnp.asarray(30.0)), jnp.asarray(batch))
+    j = jnorm.update_norm(j, jnp.asarray(batch[:, :3] * 0.5))
+    t = normalize.update_norm(convert.running_norm(mean, std**2, 30.0), torch.as_tensor(batch))
+    t = normalize.update_norm(t, torch.as_tensor(batch[:, :3] * 0.5))
+    for f in ("mean", "var", "count"):
+        np.testing.assert_allclose(getattr(t, f).numpy(), np.asarray(getattr(j, f)), rtol=1e-6, atol=1e-6)
+
+
+def test_convert_transposes_flax_kernels(setup):
+    _, _, a_params, c_params, actor, critic, _, _ = setup
+    k0 = np.asarray(a_params["params"]["MLPTrunk_0"]["Dense_0"]["kernel"])  # (in, out)
+    assert k0.shape == (37, 256)
+    assert tuple(actor.trunk.layers[0].weight.shape) == (256, 37)
+    np.testing.assert_array_equal(actor.trunk.layers[0].weight.detach().numpy(), k0.T)
+    head = np.asarray(c_params["params"]["Dense_0"]["kernel"])
+    np.testing.assert_array_equal(critic.value.weight.detach().numpy(), head.T)
+
+
+def test_networks_match_jax(setup):
+    j, t, a_params, c_params, actor, critic, jn, tn = setup
+    obs = _minibatch(2)[0]
+    jm, jls = j._policy(a_params, jn, jnp.asarray(obs))
+    tm, tls = t._policy(actor, tn, torch.as_tensor(obs))
+    np.testing.assert_allclose(tm.detach().numpy(), np.asarray(jm), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tls.detach().numpy(), np.asarray(jls), rtol=0, atol=1e-5)
+    jv = j._value(c_params, jn, jnp.asarray(obs))
+    tv = t._value(critic, tn, torch.as_tensor(obs))
+    np.testing.assert_allclose(tv.detach().numpy(), np.asarray(jv), rtol=0, atol=1e-5)
+
+
+def test_loss_and_gradients_match_jax(setup):
+    j, t, a_params, c_params, actor, critic, jn, tn = setup
+    mb = _minibatch(3)
+    grad_fn = jax.value_and_grad(j._loss_fn, argnums=(0, 1), has_aux=True)
+    (jtotal, jaux), (jga, jgc) = grad_fn(a_params, c_params, jn, tuple(map(jnp.asarray, mb)))
+    total, aux = t._loss_fn(actor, critic, tn, tuple(map(torch.as_tensor, mb)))
+    params = list(actor.named_parameters()) + list(critic.named_parameters())
+    grads = torch.autograd.grad(total, [p for _, p in params])
+    _rel_close(total.item(), float(jtotal), 1e-4)
+    for k in ("actor_loss", "critic_loss", "entropy", "mirror_loss", "approx_kl", "clip_fraction"):
+        _rel_close(aux[k].item(), float(jaux[k]), 1e-4)
+    want = {**{"a." + k: v for k, v in convert.actor_state_dict(convert.flatten_params(jga), 12).items()},
+            **{"c." + k: v for k, v in convert.critic_state_dict(convert.flatten_params(jgc)).items()}}
+    n_actor = len(list(actor.parameters()))
+    for i, ((name, _), g) in enumerate(zip(params, grads)):
+        key = ("a." if i < n_actor else "c.") + name
+        _rel_close(g.numpy(), want[key].numpy(), 1e-4)
+
+
+def test_update_step_matches_jax(setup):
+    j, t, a_params, c_params, actor, critic, jn, tn = setup
+    T, B = 4, 8
+    obs, actions, old_lp, adv, ret = _minibatch(4, T * B)
+    shape = lambda x: x.reshape((T, B) + x.shape[1:])
+    jbatch = jppo.Batch(*(jnp.asarray(shape(x)) for x in (obs, actions, old_lp, adv, ret)))
+    jts = jppo.TrainState(
+        actor_params=a_params, critic_params=c_params, actor_opt=j.actor_tx.init(a_params),
+        critic_opt=j.critic_tx.init(c_params), norm=jn, env_state=None, key=jax.random.PRNGKey(0),
+        iteration=jnp.zeros((), jnp.int32),
+    )
+    key = jax.random.PRNGKey(7)
+    jts2, _ = j._update(jts, jbatch, key)
+    # the minibatch order JAX drew: one permutation of the 2 minibatches per epoch
+    perms = [torch.as_tensor(np.array(jax.random.permutation(k, 2))) for k in jax.random.split(key, 1)]
+
+    actor2 = networks.GaussianActor(37, 12)
+    critic2 = networks.Critic(37)
+    actor2.load_state_dict(actor.state_dict())
+    critic2.load_state_dict(critic.state_dict())
+    tts = ppo.TrainState(
+        actor=actor2, critic=critic2,
+        actor_opt=ppo.Adam(list(actor2.parameters()), 3e-4, 1e-5, 0.5),
+        critic_opt=ppo.Adam(list(critic2.parameters()), 3e-4, 1e-5, 0.5),
+        norm=tn, env_state=None, iteration=0,
+    )
+    tbatch = ppo.Batch(*(torch.as_tensor(shape(x)) for x in (obs, actions, old_lp, adv, ret)))
+    tts2, _ = t._update(tts, tbatch, perms)
+    want_a = convert.actor_state_dict(convert.flatten_params(jts2.actor_params), 12)
+    want_c = convert.critic_state_dict(convert.flatten_params(jts2.critic_params))
+    moved = 0.0
+    for name, p in tts2.actor.named_parameters():
+        _rel_close(p.detach().numpy(), want_a[name].numpy(), 1e-4)
+        moved = max(moved, float((p.detach() - actor.state_dict()[name]).abs().max()))
+    for name, p in tts2.critic.named_parameters():
+        _rel_close(p.detach().numpy(), want_c[name].numpy(), 1e-4)
+    assert moved > 1e-5  # the update did change the weights

@@ -1,0 +1,48 @@
+"""CPU smoke of the port's main path: PPO on jvrc_walk through the same
+entry points chip_smoke.py drives on the card (make_env -> PPO -> train),
+at a small size: 8 envs, rollout 4, 2 iterations, (32, 32) networks.
+
+On the CPU the physics runs the plain version, so the K1 launch counter
+must stay at 0; every loss must be finite.
+"""
+
+import math
+
+import torch
+
+from learninghumanoidwalking_tpu_torch.envs.registry import make_env
+from learninghumanoidwalking_tpu_torch.ops import substep_kernel
+from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
+
+
+def test_two_training_iterations_on_cpu():
+    env = make_env("jvrc_walk", device="cpu")
+    cfg = PPOConfig(num_envs=8, rollout_len=4, minibatch_size=16, epochs=2, net_dtype="float32",
+                    hidden=(32, 32), input_norm_iters=1, seed=0)
+    trainer = PPO(env, cfg, device="cpu")
+    substep_kernel.counter.reset()
+    before = [p.detach().clone() for p in trainer.init_state().actor.parameters()]
+    ts, history = trainer.train(2, verbose=False)
+    assert substep_kernel.counter.launches == 0
+    assert len(history) == 2 and ts.iteration == 2
+    for m in history:
+        for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl", "mean_reward"):
+            assert math.isfinite(m[k]), (k, m[k])
+    after = list(ts.actor.parameters())
+    assert any(float((a.detach() - b).abs().max()) > 0 for a, b in zip(after, before))
+    assert ts.env_state.obs.shape == (8, 37) and torch.isfinite(ts.env_state.obs).all()
+    assert int(ts.env_state.iteration[0]) == 2
+
+
+def test_warmup_iteration_updates_running_norm():
+    """The obs-norm warmup (run by train() for envs without fixed obs
+    statistics) merges rollout observations into the running norm."""
+    env = make_env("jvrc_walk", device="cpu")
+    cfg = PPOConfig(num_envs=4, rollout_len=2, net_dtype="float32", hidden=(16, 16))
+    trainer = PPO(env, cfg, device="cpu")
+    ts = trainer.init_state()
+    assert trainer.warmup_iterations() == 0  # jvrc_walk ships fixed obs statistics
+    count0 = float(ts.norm.count)
+    ts = trainer._warmup_iteration(ts)
+    assert float(ts.norm.count) == count0 + 8
+    assert torch.isfinite(ts.norm.mean).all() and torch.isfinite(ts.norm.var).all()
