@@ -1,17 +1,19 @@
-"""Shared machinery for humanoid environments, flat floor and no motor model
+"""Shared machinery for humanoid environments, without a motor model
 (counterpart of learninghumanoidwalking_tpu/envs/humanoid.py).
 
 The JAX env vmaps per-env pure functions around a batch-in-lanes physics
 call; here every step is written over the batch. Physics runs through
-ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernel K1 for CUDA
-tensors, its plain PyTorch version for CPU tensors. No batch size routes
-the card back to the plain version.
+ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernels K1 (flat floor),
+K2 (terrain boxes) or K3 (heightfield) for CUDA tensors, their plain
+PyTorch version for CPU tensors. No batch size routes the card back to the
+plain version.
 
 Ported: action smoothing and nominal-pose offsets, the PD substep loop,
-observation history, reset with settle substeps, dynamics randomization and
-perturbation wrenches (sampled from a ``Draws`` source), non-finite
-termination. Not ported yet (they raise): observation noise, the learned
-motor model, PD-gain and back-EMF randomization, terrain.
+observation history and per-group observation noise, reset with settle
+substeps, per-env terrain from the task (``_terrain`` hook), dynamics
+randomization and perturbation wrenches (sampled from a ``Draws`` source),
+non-finite termination. Not ported yet (they raise): the learned motor
+model, PD-gain and back-EMF randomization.
 """
 
 from __future__ import annotations
@@ -54,22 +56,21 @@ class HumanoidEnv(Env):
         self.action_smoothing = float(cfg.action_smoothing or 0.5)
         self.action_size = m.nu
 
-        # factorization-reuse interval R (JAX envs/humanoid.py:78-80): default
-        # 5 where it divides frame_skip; config physics_reuse_interval or the
-        # LHW_PHYSICS_REUSE environment variable (tests pin R with it) override
+        # factorization-reuse interval R asked of the physics (JAX
+        # envs/humanoid.py:78-80): default 5 where it divides frame_skip;
+        # config physics_reuse_interval or the LHW_PHYSICS_REUSE environment
+        # variable (tests pin R with it) override. Steps on terrain run at
+        # R=1 whatever is asked: ops/substep_kernel.py::kernel_reuse pins it.
         reuse_cfg = os.environ.get("LHW_PHYSICS_REUSE") or cfg.physics_reuse_interval
-        default = 5 if (self.frame_skip % 5 == 0 and m.nterrain == 0) else 1
-        reuse = int(reuse_cfg) if reuse_cfg is not None else default
+        reuse = int(reuse_cfg) if reuse_cfg is not None else 5
         self.physics_reuse = reuse if (reuse > 0 and self.frame_skip % reuse == 0) else 1
 
         unported = [
             name
             for name, on in (
-                ("observation_noise", bool(cfg.observation_noise and cfg.observation_noise.enabled)),
                 ("motor_dynamics", bool(cfg.motor_dynamics and cfg.motor_dynamics.enable)),
                 ("pdrand_k", bool(cfg.pdrand_k)),
                 ("sim_bemf", bool(cfg.sim_bemf)),
-                ("terrain", m.nterrain > 0),
             )
             if on
         ]
@@ -111,6 +112,22 @@ class HumanoidEnv(Env):
             self.perturb_bodies = ()
         self.init_noise = float(cfg.init_noise) if cfg.init_noise else 0.0
 
+        # observation noise, per observation group, uniform or gaussian
+        noise_cfg = cfg.observation_noise
+        self.obs_noise_enabled = bool(noise_cfg and noise_cfg.enabled)
+        if self.obs_noise_enabled:
+            mult = float(noise_cfg.multiplier or 1.0)
+            sc = noise_cfg.scales
+            self.noise_type = str(noise_cfg.type or "uniform")
+            scale = np.zeros(nrobot, dtype=np.float32)
+            scale[0:2] = float(sc.root_orient or 0.0) * mult
+            scale[2:5] = float(sc.root_ang_vel or 0.0) * mult
+            scale[5 : 5 + m.nu] = float(sc.motor_pos or 0.0) * mult
+            scale[5 + m.nu : 5 + 2 * m.nu] = float(sc.motor_vel or 0.0) * mult
+            if self.include_torque_obs:
+                scale[5 + 2 * m.nu :] = float(sc.motor_tau or 0.0) * mult
+            self.obs_noise_scale = torch.as_tensor(scale, device=self.device)
+
     # --------------------------------------------------------------- gather
 
     def _foot_grf(self, physics):
@@ -127,13 +144,22 @@ class HumanoidEnv(Env):
     def _motor_vel(self, physics):
         return physics.qvel[:, self.act_dof]
 
-    def _robot_state(self, physics) -> torch.Tensor:
-        """roll, pitch, root angular velocity, motor pos/vel (+ torques)."""
+    def _robot_state(self, physics, draws) -> torch.Tensor:
+        """roll, pitch, root angular velocity, motor pos/vel (+ torques), with
+        the optional per-group observation noise."""
         rpy = maths.quat_to_rpy(physics.qpos[:, 3:7])
         parts = [rpy[:, :2], physics.qvel[:, 3:6], self._motor_pos(physics), self._motor_vel(physics)]
         if self.include_torque_obs:
             parts.append(physics.act_torque)
-        return torch.cat(parts, dim=-1)
+        state = torch.cat(parts, dim=-1)
+        if self.obs_noise_enabled:
+            shape, dev = tuple(state.shape), state.device
+            if self.noise_type == "gaussian":
+                noise = draws.normal("obs.noise", shape, dev)
+            else:
+                noise = draws.uniform("obs.noise", shape, -1.0, 1.0, dev)
+            state = state + noise * self.obs_noise_scale
+        return state
 
     # ------------------------------------------------- domain randomization
 
@@ -191,10 +217,10 @@ class HumanoidEnv(Env):
         task = self._task_reset(draws, n, iteration, physics)
         return physics, dyn, task
 
-    def _reset_post(self, physics, dyn, task, iteration) -> EnvState:
+    def _reset_post(self, physics, dyn, task, iteration, draws) -> EnvState:
         m = self.model
         n, dev = physics.qpos.shape[0], self.device
-        base_obs = torch.cat([self._robot_state(physics), self._external_obs(task)], dim=-1)
+        base_obs = torch.cat([self._robot_state(physics, draws), self._external_obs(task)], dim=-1)
         obs_history = torch.zeros((n, self.history_len, self.base_obs_len), device=dev)
         obs_history[:, 0] = base_obs
         if iteration is None:
@@ -220,8 +246,9 @@ class HumanoidEnv(Env):
         zero-torque settle substeps at R=1 (one kernel launch), observations."""
         physics, dyn, task = self._reset_pre(draws, num_envs, iteration)
         zeros = torch.zeros((num_envs, self.model.nu), device=self.device)
-        physics = pd_substeps_kernel(self.model, dyn, physics, zeros, 3, self.sim_dt, settle=True)
-        return self._reset_post(physics, dyn, task, iteration)
+        terrain = self._terrain(task)
+        physics = pd_substeps_kernel(self.model, dyn, physics, zeros, 3, self.sim_dt, terrain, settle=True)
+        return self._reset_post(physics, dyn, task, iteration, draws)
 
     # ------------------------------------------------------------------ step
 
@@ -234,8 +261,9 @@ class HumanoidEnv(Env):
         """One control step of every env: frame_skip substeps in one kernel
         launch, then task, reward, termination and observations."""
         full_target = self._pre_step(states, actions)
+        terrain = self._terrain(states.task)
         physics = pd_substeps_kernel(
-            self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt,
+            self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt, terrain,
             reuse_interval=self.physics_reuse,
         )
         return self._post_step(states, physics, actions, full_target, draws)
@@ -248,7 +276,7 @@ class HumanoidEnv(Env):
         components = torch.nan_to_num(components)
         done = self._done(physics) | ~finite
 
-        base_obs = torch.nan_to_num(torch.cat([self._robot_state(physics), self._external_obs(task)], dim=-1))
+        base_obs = torch.nan_to_num(torch.cat([self._robot_state(physics, draws), self._external_obs(task)], dim=-1))
         obs_history, obs = self.stack_history(state.obs_history, base_obs)
 
         dyn = state.dyn
@@ -279,6 +307,10 @@ class HumanoidEnv(Env):
         )
 
     # ----------------------------------------------------- hooks (override)
+
+    def _terrain(self, task):
+        """The envs' terrain (engine.Terrain) for a task state; flat by default."""
+        return None
 
     def _reward(self, state, physics, task, target) -> torch.Tensor:
         raise NotImplementedError

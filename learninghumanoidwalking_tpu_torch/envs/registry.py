@@ -1,6 +1,7 @@
 """Environment registry (counterpart of learninghumanoidwalking_tpu/envs/registry.py).
 
-Only jvrc_walk is ported so far; the other JAX envs follow in later slices.
+Ported so far: jvrc_walk, jvrc_step and jvrc_walk_rough; the other JAX envs
+follow in later slices.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ import importlib
 
 ENVIRONMENTS: dict[str, tuple[str, str]] = {
     "jvrc_walk": ("learninghumanoidwalking_tpu_torch.envs.jvrc_walk", "JvrcWalkEnv"),
+    "jvrc_step": ("learninghumanoidwalking_tpu_torch.envs.jvrc_step", "JvrcStepEnv"),
+    "jvrc_walk_rough": ("learninghumanoidwalking_tpu_torch.envs.jvrc_walk_rough", "JvrcWalkRoughEnv"),
 }
 
 

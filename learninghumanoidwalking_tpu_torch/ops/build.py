@@ -33,24 +33,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str, sources: list[str]) -> Path:
+def library_path(name: str, sources: list[str], defines: tuple[str, ...] = ()) -> Path:
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.encode())
         digest.update((CSRC / src).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: list[str], verbose: bool = True) -> tuple[Path, float]:
-    """Build (or reuse) lib<name>_<hash>.so from csrc/<sources>.
-    Returns (path, build seconds; 0.0 when the library was already built)."""
-    out = library_path(name, sources)
+def build_library(name: str, sources: list[str], defines: tuple[str, ...] = (), verbose: bool = True) -> tuple[Path, float]:
+    """Build (or reuse) lib<name>_<hash>.so from csrc/<sources>, with the
+    preprocessor ``defines`` (``-DNAME=VALUE`` flags). Returns (path, build
+    seconds; 0.0 when the library was already built). Different libraries
+    can build at once from several threads: nvcc runs as a subprocess."""
+    out = library_path(name, sources, defines)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), *[str(CSRC / s) for s in sources]]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-o", str(tmp), *[str(CSRC / s) for s in sources]]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.time() - t0

@@ -1,9 +1,12 @@
-"""K1, the flat-floor control-step kernel: wrapper over csrc/control_step.cu.
+"""Kernels K1 (flat floor), K2 (terrain boxes) and K3 (heightfield): the
+wrapper over csrc/control_step.cu.
 
 Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
 substep_kernel.py (``make_control_step``, its ``pl.pallas_call``) on the
-flat-floor, motor-free path. One launch runs all ``frame_skip`` PD +
-physics substeps of every env, one CUDA thread per env.
+motor-free paths. One launch runs all ``frame_skip`` PD + physics substeps
+of every env, one CUDA thread per env. The source builds into two
+libraries: K1 with the flat-floor caps, and the terrain build (16 contact
+slots, a slot-kind table, per-env terrain inputs) that K2 and K3 share.
 
 ``pd_substeps_kernel`` has the signature of the plain version,
 physics/batched.py::pd_substeps_batched, and returns the same
@@ -13,15 +16,17 @@ PhysicsState:
 * tensors on a CUDA device launch the kernel, or raise. Nothing falls back.
 
 The model reaches the kernel as runtime tables in device memory (topology,
-offsets, inertias, actuators, contact slots), built once per model and
-device and cached by the model's CONTENT, in the table layout that the
-built library reports (caps and offsets live only in csrc/control_step.cu).
+offsets, inertias, actuators, contact slots and their kinds), built once
+per model and device and cached by the model's CONTENT, in the table layout
+that the built library reports (caps and offsets live only in
+csrc/control_step.cu).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -29,15 +34,17 @@ import torch
 from learninghumanoidwalking_tpu_torch.ops import build
 from learninghumanoidwalking_tpu_torch.physics import engine as eng
 from learninghumanoidwalking_tpu_torch.physics.batched import PROJ_REFINE_ITERS, pd_substeps_batched, valid_reuse
-from learninghumanoidwalking_tpu_torch.physics.engine import _tables
+from learninghumanoidwalking_tpu_torch.physics.engine import Terrain, _tables
 from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, Contact, DynParams, Model, PhysicsState
 from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
 
 SOURCES = ["control_step.cu"]
+# build name and preprocessor defines of each library; K2 and K3 share "terrain"
+LIBRARIES = {"flat": ("lhw_control_step", ()), "terrain": ("lhw_control_step_terrain", ("-DLHW_TERRAIN=1",))}
 
 
 class LaunchCounter:
-    """Launches of the kernel (not of its plain version), for showing that a
+    """Launches of a kernel (not of its plain version), for showing that a
     run went through it."""
 
     def __init__(self) -> None:
@@ -47,16 +54,31 @@ class LaunchCounter:
         self.launches = 0
 
 
-counter = LaunchCounter()
+counters = {"K1": LaunchCounter(), "K2": LaunchCounter(), "K3": LaunchCounter()}
 
 
-def check_model(model: Model, lay: dict) -> None:
-    """Raise unless the kernel supports ``model`` (flat floor, within the
-    caps of the library's table layout ``lay``)."""
+def variant(model: Model, hfield: bool) -> str:
+    """Which kernel runs ``model``: K2 with terrain boxes, K3 with a
+    heightfield and no boxes, else K1."""
+    if model.nterrain > 0:
+        return "K2"
+    return "K3" if hfield else "K1"
+
+
+def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, motor=None) -> None:
+    """Raise unless the library of table layout ``lay`` runs ``model`` (with
+    a heightfield of ``hfield_shape`` (H, W) if given): within its caps, on
+    terrain only in the terrain build, and without a motor model."""
     fb = {model.geom_body[g] for g in model.foot_geoms}
     problems = []
-    if model.nterrain:
-        problems.append("terrain models need kernel K2 (not ported)")
+    if motor is not None:
+        problems.append("motor models need kernel K4 (not ported)")
+    if (model.nterrain or hfield_shape is not None) and not lay["LHW_TERRAIN"]:
+        problems.append("terrain and heightfield models need the terrain build (K2, K3)")
+    if model.nterrain > lay["MAX_T"]:
+        problems.append(f"{model.nterrain} terrain boxes exceed the cap {lay['MAX_T']}")
+    if hfield_shape is not None and (min(hfield_shape) < 2 or hfield_shape[0] * hfield_shape[1] > lay["MAX_HF"]):
+        problems.append(f"heightfield {hfield_shape} outside 2x2 .. {lay['MAX_HF']} nodes")
     if model.nbody > lay["MAX_B"] or model.nv > lay["MAX_V"] or model.nq > lay["MAX_Q"] or model.nu > lay["MAX_U"]:
         problems.append(f"sizes nb={model.nbody} nv={model.nv} nq={model.nq} nu={model.nu} exceed caps")
     if model.ncon > lay["MAX_C"] or len(fb) > lay["MAX_F"]:
@@ -65,10 +87,21 @@ def check_model(model: Model, lay: dict) -> None:
         raise ValueError("control-step kernel cannot run this model: " + "; ".join(problems))
 
 
-def build_tables(model: Model, lay: dict) -> tuple[np.ndarray, np.ndarray]:
+def slot_kinds(model: Model, hfield: bool) -> list[str]:
+    """Kind of every contact slot, in slot order (the Pallas kernel's slot
+    kinds, learninghumanoidwalking_tpu/ops/substep_kernel.py:180-209): per
+    foot geom 4 corners vs the floor ("flat" z=0 plane without terrain,
+    "floor" plane at floor_z, or "hfield" surface), then with terrain boxes
+    the same 4 corners vs the box SDF ("box")."""
+    floor_kind = "hfield" if hfield else ("floor" if model.nterrain > 0 else "flat")
+    per_geom = [floor_kind] * 4 + (["box"] * 4 if model.nterrain > 0 else [])
+    return per_geom * len(model.foot_geoms)
+
+
+def build_tables(model: Model, lay: dict, hfield_shape: tuple | None = None) -> tuple[np.ndarray, np.ndarray]:
     """(float table, int table) encoding ``model`` for the kernel, in the
     library's table layout ``lay``."""
-    check_model(model, lay)
+    check_model(model, lay, hfield_shape)
     t = _tables(model)
     ft = np.zeros(lay["N_FTAB"], np.float32)
     it = np.zeros(lay["N_ITAB"], np.int32)
@@ -77,7 +110,8 @@ def build_tables(model: Model, lay: dict) -> tuple[np.ndarray, np.ndarray]:
     for gi in model.foot_geoms:
         if model.geom_body[gi] not in foot_bodies:
             foot_bodies.append(model.geom_body[gi])
-    for key, val in zip(("I_NB", "I_NV", "I_NQ", "I_NU", "I_NC", "I_NFOOT"), (nb, nv, model.nq, nu, nc, len(foot_bodies))):
+    counts = (nb, nv, model.nq, nu, nc, len(foot_bodies), model.nterrain)
+    for key, val in zip(("I_NB", "I_NV", "I_NQ", "I_NU", "I_NC", "I_NFOOT", "I_NT"), counts):
         it[lay[key]] = val
     it[lay["I_PARENT"] : lay["I_PARENT"] + nb] = model.body_parent
     it[lay["I_JTYPE"] : lay["I_JTYPE"] + nb] = model.jnt_type
@@ -124,11 +158,15 @@ def build_tables(model: Model, lay: dict) -> tuple[np.ndarray, np.ndarray]:
     ft[lay["F_GEAR"] : lay["F_GEAR"] + nu] = h["actuator_gear"]
     ft[lay["F_CLO"] : lay["F_CLO"] + nu] = h["actuator_ctrlrange"][:, 0]
     ft[lay["F_CHI"] : lay["F_CHI"] + nu] = h["actuator_ctrlrange"][:, 1]
+    kinds = slot_kinds(model, hfield_shape is not None)
+    corners = np.tile(eng._BOTTOM_CORNERS, (eng.slots_per_geom(model) // 4, 1))
     slot = 0
     for gi in model.foot_geoms:
         grot = _quat_to_mat_np(h["geom_quat"][gi]).astype(np.float32)
-        for corner in eng._BOTTOM_CORNERS:
+        for corner in corners:
             it[lay["I_SLOTFOOT"] + slot] = foot_bodies.index(model.geom_body[gi])
+            if "I_SLOTKIND" in lay:  # the terrain build's kind table
+                it[lay["I_SLOTKIND"] + slot] = lay["SLOT_" + kinds[slot].upper()]
             ft[lay["F_SGPOS"] + 3 * slot : lay["F_SGPOS"] + 3 * slot + 3] = h["geom_pos"][gi]
             ft[lay["F_SGROT"] + 9 * slot : lay["F_SGROT"] + 9 * slot + 9] = grot.reshape(-1)
             ft[lay["F_SCORN"] + 3 * slot : lay["F_SCORN"] + 3 * slot + 3] = corner * h["geom_size"][gi]
@@ -140,9 +178,9 @@ def build_tables(model: Model, lay: dict) -> tuple[np.ndarray, np.ndarray]:
 _DEVICE_TABLES: dict = {}
 
 
-def device_tables(model: Model, device: torch.device, lay: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def device_tables(model: Model, device: torch.device, lay: dict, hfield_shape=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The model's tables in device memory, uploaded once per (content, device)."""
-    ft, it = build_tables(model, lay)
+    ft, it = build_tables(model, lay, hfield_shape)
     key = (hashlib.sha256(ft.tobytes() + it.tobytes()).hexdigest(), str(device))
     if key not in _DEVICE_TABLES:
         _DEVICE_TABLES[key] = (
@@ -152,13 +190,14 @@ def device_tables(model: Model, device: torch.device, lay: dict) -> tuple[torch.
     return _DEVICE_TABLES[key]
 
 
-_LIB: dict = {}
+_LIBS: dict = {}
 
 
-def _library() -> tuple[ctypes.CDLL, dict]:
-    """Build (first use) and load the kernel library; (library, its table layout)."""
-    if not _LIB:
-        path, _ = build.build_library("lhw_control_step", SOURCES)
+def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
+    """Build (first use) and load library ``build_name`` ("flat" or
+    "terrain"); (library, its table layout)."""
+    if build_name not in _LIBS:
+        path, _ = build.build_library(LIBRARIES[build_name][0], SOURCES, LIBRARIES[build_name][1])
         lib = build.load_library(path)
         lib.lhw_control_step_layout.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         lib.lhw_control_step_layout.restype = ctypes.c_int
@@ -167,17 +206,24 @@ def _library() -> tuple[ctypes.CDLL, dict]:
         n = lib.lhw_control_step_layout(names, values, cap)
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
-        lib.lhw_control_step.argtypes = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 26
+        lib.lhw_control_step.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 21
+        )
         lib.lhw_control_step.restype = ctypes.c_int
-        _LIB.update(lib=lib, layout={names[k].decode(): values[k] for k in range(n)})
-    return _LIB["lib"], _LIB["layout"]
+        _LIBS[build_name] = (lib, {names[k].decode(): values[k] for k in range(n)})
+    return _LIBS[build_name]
 
 
-def build_seconds_and_path() -> tuple[float, str]:
-    """Build the library if needed; (nvcc seconds of this call, library path)."""
-    path, seconds = build.build_library("lhw_control_step", SOURCES)
-    _library()
-    return seconds, str(path)
+def build_all() -> dict:
+    """Build both libraries at once (one nvcc each, started together) and
+    load them; {build name: (nvcc seconds of this call, library path)}."""
+    jobs = {name: (lib, SOURCES, defines) for name, (lib, defines) in LIBRARIES.items()}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(build.build_library, *args) for name, args in jobs.items()}
+        built = {name: fut.result() for name, fut in futures.items()}
+    for name in built:
+        _library(name)
+    return {name: (seconds, str(path)) for name, (path, seconds) in built.items()}
 
 
 def _trailing(x: torch.Tensor) -> torch.Tensor:
@@ -185,13 +231,10 @@ def _trailing(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).t().contiguous()
 
 
-def _check_inputs(model: Model, tensors: dict, batch: int, device: torch.device) -> None:
-    rows = dict(
-        qpos=model.nq, qvel=model.nv, target=model.nu, kp=model.nu, kd=model.nu, bemf=model.nu,
-        damping=model.nv, frictionloss=model.nv, body_mass=model.nbody, body_ipos=3 * model.nbody,
-        xfrc=6 * model.nbody,
-    )
+def _check_inputs(tensors: dict, rows: dict, batch: int, device: torch.device) -> None:
     for name, x in tensors.items():
+        if x is None:
+            continue
         if x.device != device:
             raise ValueError(f"{name}: on {x.device}, expected {device}")
         if x.dtype != torch.float32:
@@ -202,20 +245,55 @@ def _check_inputs(model: Model, tensors: dict, batch: int, device: torch.device)
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {(rows[name], batch)}")
 
 
+TERRAIN_KEYS = ("terrain_pos", "terrain_size", "terrain_cos", "terrain_sin", "floor_z", "hfield", "hf_x0y0", "hf_cell")
+
+
+def terrain_blocks(terrain: Terrain | None) -> dict:
+    """Batch-leading Terrain -> the kernel's trailing-batch (rows, B) terrain
+    inputs (None where the terrain has no such part)."""
+    out = dict.fromkeys(TERRAIN_KEYS)
+    if terrain is None:
+        return out
+    out["floor_z"] = terrain.floor_z.reshape(1, -1).contiguous()
+    if terrain.pos.shape[1] > 0:
+        out.update(
+            terrain_pos=_trailing(terrain.pos), terrain_size=_trailing(terrain.size),
+            terrain_cos=_trailing(torch.cos(terrain.yaw)), terrain_sin=_trailing(torch.sin(terrain.yaw)),
+        )
+    if terrain.hfield is not None:
+        out.update(hfield=_trailing(terrain.hfield), hf_x0y0=_trailing(terrain.hfield_x0y0), hf_cell=_trailing(terrain.hfield_cell))
+    return out
+
+
 def control_step_launch(
-    model: Model, inputs: dict, frame_skip: int, sim_dt: float, settle: bool, reuse: int
+    model: Model, inputs: dict, frame_skip: int, sim_dt: float, settle: bool, reuse: int,
+    terrain: dict | None = None, hfield_shape: tuple | None = None,
 ) -> dict:
-    """Launch K1 on trailing-batch (rows, B) float32 CUDA tensors; returns the
-    12 outputs as (rows, B) tensors. Launches on the current stream and does
-    not synchronize."""
+    """Launch K1, K2 or K3 on trailing-batch (rows, B) float32 CUDA tensors
+    (``terrain``: the blocks of terrain_blocks, with ``hfield_shape`` (H, W)
+    where there is a heightfield); returns the 12 outputs as (rows, B)
+    tensors. Launches on the current stream and does not synchronize."""
     qpos = inputs["qpos"]
     device = qpos.device
     if device.type != "cuda":
         raise ValueError(f"control_step_launch takes CUDA tensors, got {device}")
     batch = qpos.shape[1]
-    _check_inputs(model, inputs, batch, device)
-    lib, lay = _library()
-    ftab, itab = device_tables(model, device, lay)
+    name = variant(model, hfield_shape is not None)
+    terrain = terrain or dict.fromkeys(TERRAIN_KEYS)
+    nt, hw = model.nterrain, (hfield_shape[0] * hfield_shape[1] if hfield_shape else 0)
+    rows = dict(
+        qpos=model.nq, qvel=model.nv, target=model.nu, kp=model.nu, kd=model.nu, bemf=model.nu,
+        damping=model.nv, frictionloss=model.nv, body_mass=model.nbody, body_ipos=3 * model.nbody,
+        xfrc=6 * model.nbody, terrain_pos=3 * nt, terrain_size=3 * nt, terrain_cos=nt, terrain_sin=nt,
+        floor_z=1, hfield=hw, hf_x0y0=2, hf_cell=2,
+    )
+    needed = {"K1": (), "K2": TERRAIN_KEYS[:5], "K3": ("floor_z", "hfield", "hf_x0y0", "hf_cell")}[name]
+    missing = [k for k in needed if terrain.get(k) is None]
+    if missing:
+        raise ValueError(f"{name} needs terrain inputs {missing}")
+    _check_inputs({**inputs, **terrain}, rows, batch, device)
+    lib, lay = _library("flat" if name == "K1" else "terrain")
+    ftab, itab = device_tables(model, device, lay, hfield_shape)
     nc = model.ncon
     out_rows = dict(
         qpos=model.nq, qvel=model.nv, qacc=model.nv, act_torque=model.nu, cforce=3 * nc, cdist=nc,
@@ -224,19 +302,30 @@ def control_step_launch(
     )
     outs = {k: torch.empty((r, batch), dtype=torch.float32, device=device) for k, r in out_rows.items()}
     order_in = ("qpos", "qvel", "target", "kp", "kd", "bemf", "damping", "frictionloss", "body_mass", "body_ipos", "xfrc")
+    ptr = lambda x: None if x is None else x.data_ptr()
+    hh, ww = hfield_shape if hfield_shape else (0, 0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.lhw_control_step(
             batch, int(frame_skip), int(valid_reuse(frame_skip, reuse)), int(bool(settle)), float(sim_dt),
             ftab.data_ptr(), itab.data_ptr(),
             *[inputs[k].data_ptr() for k in order_in],
+            hh, ww, *[ptr(terrain[k]) for k in TERRAIN_KEYS],
             *[outs[k].data_ptr() for k in out_rows],
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"control-step kernel launch failed: cudaError {err}")
-    counter.launches += 1
+        raise RuntimeError(f"control-step kernel {name} launch failed: cudaError {err}")
+    counters[name].launches += 1
     return outs
+
+
+def kernel_reuse(terrain: Terrain | None, reuse_interval: int) -> int:
+    """The factorization-reuse interval R a step runs at: as asked on the
+    flat floor (K1), 1 on terrain boxes or a heightfield (K2, K3), as the
+    reference pins it (learninghumanoidwalking_tpu/ops/substep_kernel.py:
+    1360-1364)."""
+    return reuse_interval if terrain is None else 1
 
 
 def pd_substeps_kernel(
@@ -246,19 +335,27 @@ def pd_substeps_kernel(
     target: torch.Tensor,
     frame_skip: int,
     sim_dt: float,
+    terrain: Terrain | None = None,
     settle: bool = False,
     reuse_interval: int = 1,
 ) -> PhysicsState:
-    """Drop-in for physics/batched.py::pd_substeps_batched through K1.
+    """Drop-in for physics/batched.py::pd_substeps_batched through K1, K2 or
+    K3, at the reuse interval of kernel_reuse on both paths.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     device = physics.qpos.device
+    hfield_shape = tuple(terrain.hfield.shape[1:]) if terrain is not None and terrain.hfield is not None else None
+    name = variant(model, hfield_shape is not None)
+    if (name == "K2") != (terrain is not None and terrain.pos.shape[1] > 0) or (name == "K1" and terrain is not None):
+        raise ValueError(f"terrain does not fit the model ({model.nterrain} terrain boxes, heightfield {hfield_shape})")
+    reuse_interval = kernel_reuse(terrain, reuse_interval)
     if device.type == "cpu":
         return pd_substeps_batched(
-            model, params, physics, target, frame_skip, sim_dt, settle=settle, reuse_interval=reuse_interval
+            model, params, physics, target, frame_skip, sim_dt, terrain, settle=settle, reuse_interval=reuse_interval
         )
     if device.type != "cuda":
         raise ValueError(f"pd_substeps_kernel: unsupported device {device}")
+    check_model(model, _library("flat" if name == "K1" else "terrain")[1], hfield_shape)
     batch = physics.qpos.shape[0]
     inputs = dict(
         qpos=_trailing(physics.qpos),
@@ -273,12 +370,19 @@ def pd_substeps_kernel(
         body_ipos=_trailing(params.body_ipos),
         xfrc=_trailing(params.xfrc),
     )
-    out = control_step_launch(model, inputs, frame_skip, sim_dt, settle, reuse_interval)
+    out = control_step_launch(
+        model, inputs, frame_skip, sim_dt, settle, reuse_interval, terrain_blocks(terrain), hfield_shape
+    )
     nc, nb = model.ncon, model.nbody
     lead = lambda x, *shape: x.t().reshape(batch, *shape)
+    if terrain is None:
+        frame = torch.as_tensor(eng._Z_FRAME, device=device).expand(batch, nc, 3, 3)
+    else:
+        # the kernel returns the contact normals; the frames follow from them
+        frame = eng.frame_from_normal(lead(out["cnormal"], nc, 3))
     contact = Contact(
         pos=lead(out["cpos"], nc, 3),
-        frame=torch.as_tensor(eng._Z_FRAME, device=device).expand(batch, nc, 3, 3),
+        frame=frame,
         dist=lead(out["cdist"], nc),
         geom=torch.as_tensor(eng.slot_geoms(model), dtype=torch.int32, device=device).expand(batch, -1),
         force=lead(out["cforce"], nc, 3),
@@ -302,16 +406,21 @@ def pd_substeps_kernel(
 # ---------------------------------------------------------------------------
 
 
-def flops_per_env_substep(model: Model, reuse: int) -> float:
+def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False) -> float:
     """Float operations that one env-substep needs, the refresh work amortized
-    over the reuse group R (an FMA counts 2; a divide or sqrt 4; sin, cos 8).
+    over the reuse group R (an FMA counts 2; a divide or sqrt 4; sin, cos 8),
+    for the flat floor, the terrain boxes, or (``hfield``) the heightfield.
 
-    This is the least work of the step, not what K1 executes: the contact
-    solve is counted in the Woodbury form of the Pallas kernel
+    This is the least work of the step, not what the kernels execute: the
+    contact solve is counted in the Woodbury form of the Pallas kernel
     (learninghumanoidwalking_tpu/ops/substep_kernel.py:765-856), which
     factors the 12x12 foot-basis Gram at refresh and a 12x12 inner system per
-    substep. K1 solves the dense 3nc x 3nc system of physics/batched.py, which
-    takes more operations. Projected solves as in physics/batched.py."""
+    substep. K1, K2 and K3 solve the dense 3nc x 3nc system of
+    physics/batched.py, which takes more operations. Projected solves as in
+    physics/batched.py. Terrain adds per substep: the box SDF over all boxes
+    for each box slot (the normal only for the winner), 5 bilinear samples
+    of 4 nodes per heightfield slot and its normal, a frame from every
+    tilted normal and 6-term contact rows (slot_coeffs_frame)."""
     nb, nv, nu, nc = model.nbody, model.nv, model.nu, model.ncon
     anc = _tables(model)["anc"] > 0.5
     npairs = sum(1 for d in range(nv) for e in range(d + 1) if anc[model.dof_body[d], e])
@@ -334,13 +443,25 @@ def flops_per_env_substep(model: Model, reuse: int) -> float:
     refresh += nk * fwd(nv) + nk * (nk + 1) / 2 * 2 * nv + chol(nk)
     per += refresh / max(reuse, 1)
     per += 2 * fwd(nv)  # smooth qacc
-    # contact rows: each is a 3-term expansion over its foot's 6 basis keys
-    # (slot_coeffs_static); Chat = mask * C LG is lower-triangular in its key
+    # contact distances and normals per slot kind
+    kinds = slot_kinds(model, hfield)
+    per_box = 22  # dx dy lz, yawed lx ly, ex ey ez, inside, pen, compare to the best
+    tilt = 28 + 17  # frame_from_normal; 6-term row coefficients beyond the static 3
+    # one bilinear sample: 4 node weights (3 each), 2 rows and the blend;
+    # u, v, their +-0.25 neighbours clipped; two slopes; the unit normal; the gap
+    hf_corner = 5 * (12 + 9) + 12 + 12 + 12 + 20 + 3
+    per += sum({"flat": 0, "floor": 1, "hfield": hf_corner + tilt, "box": model.nterrain * per_box + 5 + tilt}[k] for k in kinds)
+    # contact rows: static frames are a 3-term expansion over the foot's 6
+    # basis keys (slot_coeffs_static), tilted ones a 6-term expansion;
+    # Chat = mask * C LG is lower-triangular in its key
     row_keys = []
     slot_foot = [feet.index(model.geom_body[g]) for g in eng.slot_geoms(model)]
     for c in range(nc):
         base = 6 * slot_foot[c]
-        row_keys += [[base + 5, base + 1, base], [base + 3, base + 2, base + 1], [base + 4, base, base + 2]]
+        if kinds[c] in ("flat", "floor"):
+            row_keys += [[base + 5, base + 1, base], [base + 3, base + 2, base + 1], [base + 4, base, base + 2]]
+        else:
+            row_keys += [list(range(base, base + 6))] * 3
     terms = np.array([[sum(r >= k for r in keys) for k in range(nk)] for keys in row_keys])
     nz = terms > 0
     nnz = int(nz.sum())
@@ -357,9 +478,15 @@ def flops_per_env_substep(model: Model, reuse: int) -> float:
     return float(per)
 
 
-def bytes_per_launch(model: Model, batch: int) -> int:
-    """Bytes the launch must move: each input read once, each output written once."""
+def bytes_per_launch(model: Model, batch: int, hfield_shape: tuple | None = None) -> int:
+    """Bytes the launch must move: each input read once, each output written
+    once (terrain inputs: box pos, size, cos, sin, floor_z; heightfield
+    nodes, origin, spacing)."""
     nb, nv, nq, nu, nc = model.nbody, model.nv, model.nq, model.nu, model.ncon
     rows_in = nq + nv + 4 * nu + 2 * nv + nb + 3 * nb + 6 * nb
+    if model.nterrain or hfield_shape:
+        rows_in += 8 * model.nterrain + 1
+    if hfield_shape:
+        rows_in += hfield_shape[0] * hfield_shape[1] + 4
     rows_out = nq + 2 * nv + nu + 3 * nc + 2 * nc + 6 * nc + 3 * nb + 4 * nb + 6 * nb
     return 4 * batch * (rows_in + rows_out)

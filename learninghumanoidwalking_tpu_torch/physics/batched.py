@@ -192,25 +192,46 @@ def factorize_b(model: Model, params: DynParams, jac, inertias, dt):
 
 
 # --------------------------------------------------------------------------
-# contacts (flat floor)
+# contacts: floor, heightfield, terrain boxes
 # --------------------------------------------------------------------------
 
 
-def detect_contacts_b(model: Model, xpos, xquat, rmats):
-    """-> (cpos (B,nc,3), dist (B,nc), mask (B,nc), frame (B,nc,3,3)):
-    the 4 bottom corners of every foot box against the z=0 floor."""
+def detect_contacts_b(model: Model, xpos, xquat, rmats, terrain: eng.Terrain | None = None):
+    """-> (cpos (B,nc,3), dist (B,nc), mask (B,nc), frame (B,nc,3,3)).
+
+    Per foot geom, its 4 bottom corners against the floor: the z=0 plane
+    without terrain, else the plane at floor_z or the heightfield surface
+    (distance = vertical gap times the surface normal's z, tilted frame).
+    Terrain-box models add the same 4 corners against the box SDF."""
     batch = xpos.shape[0]
-    all_pos = []
+    z_frame = _const(eng._Z_FRAME, xpos).expand(batch, 4, 3, 3)
+    all_pos, all_dist, all_frame = [], [], []
     for gi in model.foot_geoms:
         bi = model.geom_body[gi]
         rot_b = rmats[:, bi]
         rot_g = torch.einsum("bij,jk->bik", rot_b, _const(_quat_to_mat_np(model.np("geom_quat")[gi]), xpos))
         gpos = xpos[:, bi] + torch.einsum("bij,j->bi", rot_b, model.geom_pos[gi])
         corners_l = _const(eng._BOTTOM_CORNERS * model.np("geom_size")[gi][None, :], xpos)
-        all_pos.append(gpos[:, None] + torch.einsum("bij,cj->bci", rot_g, corners_l))
+        cw = gpos[:, None] + torch.einsum("bij,cj->bci", rot_g, corners_l)  # (B, 4, 3)
+        if terrain is None:
+            floor_dist, ground_frame = cw[..., 2], z_frame
+        elif terrain.hfield is not None:
+            hz, hn = eng.hfield_query(terrain, cw[..., :2])
+            floor_dist = (cw[..., 2] - (terrain.floor_z[:, None] + hz)) * hn[..., 2]
+            ground_frame = eng.frame_from_normal(hn)
+        else:
+            floor_dist, ground_frame = cw[..., 2] - terrain.floor_z[:, None], z_frame
+        all_pos.append(cw)
+        all_dist.append(floor_dist)
+        all_frame.append(ground_frame)
+        if model.nterrain > 0:
+            box_dist, normal = eng.terrain_contact(terrain, cw)
+            all_pos.append(cw)
+            all_dist.append(box_dist)
+            all_frame.append(eng.frame_from_normal(normal))
     cpos = torch.cat(all_pos, dim=1)
-    dist = cpos[..., 2]
-    frame = _const(eng._Z_FRAME, xpos).expand(batch, cpos.shape[1], 3, 3)
+    dist = torch.cat(all_dist, dim=1)
+    frame = torch.cat(all_frame, dim=1)
     mask = (dist < eng.CONTACT_MARGIN).to(cpos.dtype)
     return cpos, dist, mask, frame
 
@@ -314,7 +335,7 @@ def integrate_b(model: Model, qpos, qvel, dt):
     return new_qpos
 
 
-def step_b(model: Model, params: DynParams, qpos, qvel, ctrl, dt, cache=None):
+def step_b(model: Model, params: DynParams, qpos, qvel, ctrl, dt, terrain=None, cache=None):
     """One substep. Returns (qpos, qvel, qacc, act_force, cpos, dist, mask,
     force, frame, cache).
 
@@ -332,7 +353,7 @@ def step_b(model: Model, params: DynParams, qpos, qvel, ctrl, dt, cache=None):
         cache = (jac, factorize_b(model, params, jac, inertias, dt))
     jac_c, chol = cache
     qacc_smooth = cho_solve_outer(chol, qfrc_smooth)
-    cpos, dist, mask, cframe = detect_contacts_b(model, xpos, xquat, rmats)
+    cpos, dist, mask, cframe = detect_contacts_b(model, xpos, xquat, rmats, terrain)
     qacc, force = constraint_solve_b(model, qvel, jac_c, chol, qacc_smooth, cpos, dist, mask, cframe)
     qvel = qvel + dt * qacc
     # runaway guard: clamp far above physical speeds (NaN passes through)
@@ -354,12 +375,15 @@ def pd_substeps_batched(
     target: torch.Tensor,  # (B, nu)
     frame_skip: int,
     sim_dt: float,
+    terrain: eng.Terrain | None = None,
     settle: bool = False,
     reuse_interval: int = 1,
 ) -> PhysicsState:
     """frame_skip PD + physics substeps over a whole env batch.
 
-    settle=True applies zero torque (reset settling). Substep 0 of every
+    ``terrain`` (batch-leading) is required when the model has terrain
+    boxes; a heightfield terrain goes with a box-free model. settle=True
+    applies zero torque (reset settling). Substep 0 of every
     group of ``reuse_interval`` substeps refreshes the factorization; the
     rest reuse it. qacc, act_torque and the contact fields come from the
     last substep; FK caches are rebuilt at the final state."""
@@ -377,7 +401,7 @@ def pd_substeps_batched(
             v = qvel[:, act_d]
             tau = params.kp * (target - q) - params.kd * v - params.bemf_gain * v
             ctrl = tau / gear
-        out = step_b(model, params, qpos, qvel, ctrl, sim_dt, cache=None if sub % reuse == 0 else cache)
+        out = step_b(model, params, qpos, qvel, ctrl, sim_dt, terrain, cache=None if sub % reuse == 0 else cache)
         qpos, qvel, qacc, act_force, cpos, dist, mask, force, cframe, cache = out
 
     xpos, xquat = fk_b(model, qpos)

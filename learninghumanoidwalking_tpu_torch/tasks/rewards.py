@@ -164,3 +164,8 @@ def upper_body_reward(head_xy, root_xy):
 def posture_reward(pose, neutral_pose):
     """exp(-||pose - neutral||)."""
     return torch.exp(-_norm(neutral_pose - pose))
+
+
+def body_orient_reward(body_quat, target_quat):
+    """exp(-10 (1 - <q, q*>^2)) orientation tracking."""
+    return torch.exp(-10.0 * (1.0 - torch.sum(target_quat * body_quat, dim=-1) ** 2))

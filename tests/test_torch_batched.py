@@ -117,20 +117,72 @@ def _total_grf(force, mask):
     return np.sum(np.linalg.norm(force, axis=-1) * mask, axis=1)
 
 
-@pytest.mark.parametrize("reuse", [1, 5])
-@pytest.mark.parametrize("settle", [False, True], ids=["step", "settle"])
-def test_pd_substeps_matches_jax(models, reuse, settle):
-    jm, tm = models
+def _terrain_case(kind, rng):
+    """(JAX model, port model, JAX Terrain, port Terrain, root lift) for a
+    terrain kind: flat floor; 20 stepping-stone boxes (level under the feet,
+    every third raised 3 cm from x = 1.05 m on, yawed, every other env with
+    its floor 2 m down); a 16x16 heightfield of
+    U(0, 0.035) heights, 0.25 m cells, with the compliant contacts of
+    jvrc_walk_rough (timeconst 0.04)."""
+    spec_kw, lift, arrays = {}, 0.0, None
+    if kind == "boxes":
+        nt = 20
+        pos = np.zeros((B, nt, 3), np.float32)
+        pos[..., 0] = 0.3 * np.arange(nt) - 0.3
+        pos[..., 1] = 0.05 * rng.standard_normal((B, 1))
+        pos[..., 2] = np.where((np.arange(nt) % 3 == 2) & (np.arange(nt) > 4), 0.03, 0.0) - 0.1
+        arrays = dict(
+            pos=pos, size=np.tile(np.array([0.15, 1.0, 0.1], np.float32), (B, nt, 1)),
+            yaw=(0.1 * rng.standard_normal((B, nt))).astype(np.float32),
+            floor_z=np.where(np.arange(B) % 2 == 0, 0.0, -2.0).astype(np.float32),
+        )
+        spec_kw = dict(nterrain=nt)
+    elif kind == "hfield":
+        arrays = dict(
+            pos=np.zeros((B, 0, 3), np.float32), size=np.zeros((B, 0, 3), np.float32), yaw=np.zeros((B, 0), np.float32),
+            floor_z=np.zeros(B, np.float32), hfield=rng.uniform(0.0, 0.035, (B, 16, 16)).astype(np.float32),
+            hfield_x0y0=np.tile(np.array([-1.2, -1.875], np.float32), (B, 1)),
+            hfield_cell=np.full((B, 2), 0.25, np.float32),
+        )
+        spec_kw, lift = dict(timeconst=0.04), 0.02
+    jm, tm = jax_lower(jax_jvrc.jvrc_spec(**spec_kw)), lower(jvrc.jvrc_spec(**spec_kw), device="cpu")
+    if arrays is None:
+        return jm, tm, None, None, lift
+    jt = je.Terrain(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tt = te.Terrain(**{k: torch.tensor(v) for k, v in arrays.items()})
+    return jm, tm, jt, tt, lift
+
+
+# (terrain, R, settle); the flat cases keep their ids. Terrain models run at
+# R=1, as the reference pins them.
+CASES = [
+    pytest.param("flat", 1, False, id="step-1"),
+    pytest.param("flat", 5, False, id="step-5"),
+    pytest.param("flat", 1, True, id="settle-1"),
+    pytest.param("flat", 5, True, id="settle-5"),
+    pytest.param("boxes", 1, False, id="boxes-step-1"),
+    pytest.param("boxes", 1, True, id="boxes-settle-1"),
+    pytest.param("hfield", 1, False, id="hfield-step-1"),
+    pytest.param("hfield", 1, True, id="hfield-settle-1"),
+]
+
+
+@pytest.mark.parametrize("terrain_kind, reuse, settle", CASES)
+def test_pd_substeps_matches_jax(terrain_kind, reuse, settle):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    jm, tm, jter, tter, lift = _terrain_case(terrain_kind, np.random.default_rng(7))
     qpos, qvel, target, pose = _inputs(0)
+    qpos[:, 2] += lift
     # settle runs 3 substeps; R=5 does not divide 3, so both sides fall back to R=1
     frame_skip = 3 if settle else 25
     jp = _jax_params(jm)
     tp = default_dyn_params(tm, KP, KD, B)
 
-    run_j = jax.jit(lambda s, t: jb.pd_substeps_batched(jm, jp, s, t, frame_skip, 1e-3, settle=settle, reuse_interval=reuse))
+    run_j = jax.jit(lambda s, t: jb.pd_substeps_batched(jm, jp, s, t, frame_skip, 1e-3, jter, settle=settle, reuse_interval=reuse))
 
     def run_t(s, t):
-        return tb.pd_substeps_batched(tm, tp, s, t, frame_skip, 1e-3, settle=settle, reuse_interval=reuse)
+        return tb.pd_substeps_batched(tm, tp, s, t, frame_skip, 1e-3, tter, settle=settle, reuse_interval=reuse)
 
     s_j = jax.vmap(lambda q, v: je.make_state(jm, q, v))(jnp.asarray(qpos), jnp.asarray(qvel))
     s_t = te.make_state(tm, torch.tensor(qpos), torch.tensor(qvel))
@@ -164,3 +216,44 @@ def test_pd_substeps_matches_jax(models, reuse, settle):
     assert sq_err < 8e-3, sq_err
     assert fn_rel < 0.02, fn_rel
     assert vs_weight < 0.03, vs_weight
+
+
+def test_side_face_contact_matches_jax():
+    """Feet flying forward into a riser (the scenario of the JAX package's
+    tests/test_kernel.py side-face test): the port's plain version against
+    the JAX batched engine over 14 control steps of 5 substeps. The riser's
+    face pushes the toe back (a horizontal -x contact normal), which must
+    engage at some step. Tolerances as the JAX test's: qpos 5e-4, contact
+    frames 1e-4 (the contact turns on and off within the run, so rounding
+    differences of the two engines grow over it)."""
+    b, nt = 8, 2
+    jm, tm = jax_lower(jax_jvrc.jvrc_spec(nterrain=nt)), lower(jvrc.jvrc_spec(nterrain=nt), device="cpu")
+    pose = np.deg2rad(np.asarray(jvrc.HALF_SITTING_POSE_DEG, np.float32))
+    qpos = np.tile(np.concatenate([[0, 0, jvrc.NOMINAL_HEIGHT, 1, 0, 0, 0], pose]).astype(np.float32)[None], (b, 1))
+    qvel = np.zeros((b, 18), np.float32)
+    qvel[:, 0] = 1.0
+    # a tall step ahead: riser face at x = 0.20, top at z = 0.6
+    arrays = dict(
+        pos=np.tile(np.array([[0.40, 0.0, 0.3], [9.0, 9.0, -0.07]], np.float32)[None], (b, 1, 1)),
+        size=np.tile(np.array([[0.2, 1.0, 0.3], [0.5, 0.5, 0.1]], np.float32)[None], (b, 1, 1)),
+        yaw=np.zeros((b, nt), np.float32),
+        floor_z=np.zeros(b, np.float32),
+    )
+    jter = je.Terrain(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tter = te.Terrain(**{k: torch.tensor(v) for k, v in arrays.items()})
+    target = np.tile(pose[None], (b, 1))
+    jp = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (b,) + x.shape), jax_default_dyn_params(jm, KP, KD))
+    tp = default_dyn_params(tm, KP, KD, b)
+    run_j = jax.jit(lambda s: jb.pd_substeps_batched(jm, jp, s, jnp.asarray(target), 5, 1e-3, jter))
+    s_j = jax.vmap(lambda q, v: je.make_state(jm, q, v))(jnp.asarray(qpos), jnp.asarray(qvel))
+    s_t = te.make_state(tm, torch.tensor(qpos), torch.tensor(qvel))
+    engaged = False
+    for _ in range(14):
+        s_j = run_j(s_j)
+        s_t = tb.pd_substeps_batched(tm, tp, s_t, torch.tensor(target), 5, 1e-3, tter)
+        normals = s_t.contact.frame[:, :, 0].numpy()
+        active = s_t.contact.mask.numpy() > 0
+        engaged |= bool(active.any() and (normals[active][:, 0] < -0.9).any())
+    np.testing.assert_allclose(s_t.qpos.numpy(), np.asarray(s_j.qpos), rtol=0, atol=5e-4)
+    np.testing.assert_allclose(s_t.contact.frame.numpy(), np.asarray(s_j.contact.frame), rtol=0, atol=1e-4)
+    assert engaged, "no side-face contact engaged"

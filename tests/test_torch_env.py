@@ -1,4 +1,5 @@
-"""The port's jvrc_walk env against the JAX package's, on CPU.
+"""The port's jvrc_walk, jvrc_step and jvrc_walk_rough envs against the JAX
+package's, on CPU.
 
 Random draws are injected, not regenerated: the JAX env derives its task
 draws from per-env PRNG keys; the tests replay that key schedule with
@@ -8,7 +9,11 @@ InjectedDraws. Actions come from numpy with a fixed seed.
 Tolerances: observations and weighted reward components 1e-3 absolute
 (O(1) values; a few control steps from a settled reset, where both engines
 agree to ~1e-5 — far inside bench.py's cross-compiler gate of 5e-3 on
-qpos); done flags and task state exactly.
+qpos); done flags and task state exactly. The stepping task's sequences,
+terrain and footstep plan bank are held exactly (the same float32 formulas
+on the same inputs); the terrain of a whole env reset is held to 1e-6,
+since it is placed at the feet that each package's forward kinematics put
+there.
 """
 
 import numpy as np
@@ -17,10 +22,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from learninghumanoidwalking_tpu.envs.jvrc_step import JvrcStepEnv as JaxJvrcStepEnv
 from learninghumanoidwalking_tpu.envs.jvrc_walk import JvrcWalkEnv as JaxJvrcWalkEnv
+from learninghumanoidwalking_tpu.envs.jvrc_walk_rough import JvrcWalkRoughEnv as JaxJvrcWalkRoughEnv
+from learninghumanoidwalking_tpu.tasks import stepping as jstepping
 from learninghumanoidwalking_tpu.tasks import walking as jwalking
+from learninghumanoidwalking_tpu.utils.footstep_plans import plan_bank as jax_plan_bank
+from learninghumanoidwalking_tpu_torch.envs.jvrc_step import JvrcStepEnv
 from learninghumanoidwalking_tpu_torch.envs.jvrc_walk import JvrcWalkEnv
-from learninghumanoidwalking_tpu_torch.tasks import walking
+from learninghumanoidwalking_tpu_torch.envs.jvrc_walk_rough import JvrcWalkRoughEnv
+from learninghumanoidwalking_tpu_torch.ops.substep_kernel import kernel_reuse
+from learninghumanoidwalking_tpu_torch.tasks import stepping, walking
+from learninghumanoidwalking_tpu_torch.utils.footstep_plans import plan_bank
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 
 B = 6
@@ -203,3 +216,266 @@ def test_domain_randomization_draws_match_jax(tmp_path):
     pgot = tenv._sample_perturbation(InjectedDraws(draws), got)
     assert np.abs(np.asarray(pref.xfrc)).max() > 0
     np.testing.assert_allclose(pgot.xfrc.numpy(), np.asarray(pref.xfrc), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# terrain envs: jvrc_step (stepping stones, K2) and jvrc_walk_rough (K3)
+# ---------------------------------------------------------------------------
+
+
+def _np(tree):
+    return {k: np.asarray(v) for k, v in tree.items()}
+
+
+def _walking_reset_draws(task_keys, period):
+    """Draws of JAX walking.reset for each task key."""
+
+    def one(k):
+        k1, k2, k3 = jax.random.split(k, 3)
+        mode = jax.random.choice(k1, jnp.array([2, 1, 0]), p=jnp.array([0.6, 0.2, 0.2]))
+        return mode, k2, jax.random.randint(k3, (), 0, period)
+
+    mode, k2, phase = jax.vmap(one)(task_keys)
+    return {"task.mode": np.asarray(mode), "task.phase": np.asarray(phase), **_mode_ref_draws(k2)}
+
+
+def _walking_step_draws(task_keys):
+    """Draws of JAX walking.step for each task key."""
+
+    def one(k):
+        k1, k2, k3, _ = jax.random.split(k, 4)
+        return jax.random.randint(k1, (), 0, 100), jax.random.randint(k2, (), 0, 200), k3
+
+    s1, s2, k3 = jax.vmap(one)(task_keys)
+    return {"task.switch1": np.asarray(s1), "task.switch2": np.asarray(s2), **_mode_ref_draws(k3)}
+
+
+def _dyn_draws(keys, m):
+    """Draws of JAX HumanoidEnv._sample_dynamics for each key."""
+
+    def one(k):
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        return {
+            "dyn.frictionloss": jax.random.uniform(k1, (m.nv,), minval=0.0, maxval=2.0),
+            "dyn.damping": jax.random.uniform(k2, (m.nv,), minval=0.02, maxval=2.0),
+            "dyn.mass_scale": jax.random.uniform(k3, (m.nbody,), minval=0.95, maxval=1.05),
+            "dyn.ipos": jax.random.uniform(k4, (m.nbody, 3), minval=-0.01, maxval=0.01),
+        }
+
+    return _np(jax.vmap(one)(keys))
+
+
+def _init_draws(keys, c, nu):
+    """Draws of the JAX initial-pose noise for each key."""
+
+    def one(k):
+        kz, kr, kj = jax.random.split(k, 3)
+        return {
+            "init.height": jax.random.uniform(kz, (), minval=0.0, maxval=0.02),
+            "init.roll_pitch": jax.random.uniform(kr, (2,), minval=-c, maxval=c),
+            "init.joints": jax.random.uniform(kj, (nu,), minval=-c, maxval=c),
+        }
+
+    return _np(jax.vmap(one)(keys))
+
+
+def _obs_noise_draws(keys, n):
+    return {"obs.noise": np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n,), minval=-1.0, maxval=1.0))(keys))}
+
+
+def _stepping_reset_draws(task_keys, nplans):
+    """Draws of JAX stepping.reset for each task key: one named draw per use
+    of a key (the JAX branches of make_sequence share k0)."""
+
+    def one(k):
+        k_mode, k_phase, k_seq = jax.random.split(k, 3)
+        k0, k1, k2 = jax.random.split(k_seq, 3)
+        ka, kb = jax.random.split(k0)
+        modes = jnp.array([jstepping.CURVED, jstepping.STANDING, jstepping.BACKWARD, jstepping.LATERAL, jstepping.FORWARD])
+        return {
+            "step.mode": jax.random.choice(k_mode, modes, p=jnp.array([0.15, 0.05, 0.2, 0.3, 0.3])),
+            "step.phase_flip": jax.random.bernoulli(k_phase, 0.5).astype(jnp.int32),
+            "step.height_sign": jax.random.bernoulli(k1, 0.5).astype(jnp.int32),
+            "step.inplace_size": jax.random.uniform(k2, (), minval=-0.05, maxval=0.05),
+            "step.first_y": jax.random.uniform(ka, (), minval=0.095, maxval=0.105),
+            "step.c": jax.random.randint(kb, (), 2, 4),
+            "step.lateral_side": jax.random.bernoulli(k0, 0.5).astype(jnp.int32),
+            "step.plan": jax.random.randint(k0, (), 0, nplans),
+        }
+
+    return _np(jax.vmap(one)(task_keys))
+
+
+def _env_reset_draws(jenv, keys):
+    """Every draw of a JAX env's reset_batch for the port, by env key."""
+    k_dyn, k_noise, k_task, k_obs, _ = (jnp.stack(x) for x in zip(*[jax.random.split(k, 5) for k in keys]))
+    draws = {}
+    if jenv.dynrand_interval:
+        draws.update(_dyn_draws(k_dyn, jenv.model))
+    if jenv.init_noise:
+        draws.update(_init_draws(k_noise, jenv.init_noise * np.pi / 180.0, jenv.model.nu))
+    if jenv.obs_noise_enabled:
+        draws.update(_obs_noise_draws(k_obs, jenv.robot_state_len))
+    if isinstance(jenv, JaxJvrcStepEnv):
+        draws.update(_stepping_reset_draws(k_task, jenv.plans.shape[0]))
+    else:
+        k1, k2 = (jnp.stack(x) for x in zip(*[jax.random.split(k) for k in k_task]))
+        draws.update(_walking_reset_draws(k1, jenv.period))
+        draws["hfield"] = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (16, 16), minval=0.0, maxval=0.035))(k2))
+    return draws
+
+
+def _env_step_draws(jenv, keys):
+    """Every draw of a JAX env's step_batch for the port, by env key."""
+    k_task, k_obs, k_dyn, k_pert, k_ev, _ = (jnp.stack(x) for x in zip(*[jax.random.split(k, 6) for k in keys]))
+    ev1, ev2, _, _ = (jnp.stack(x) for x in zip(*[jax.random.split(k, 4) for k in k_ev]))
+    draws = {}
+    if jenv.obs_noise_enabled:
+        draws.update(_obs_noise_draws(k_obs, jenv.robot_state_len))
+    if jenv.dynrand_interval:
+        draws["dyn.event"] = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, jenv.dynrand_interval))(ev1))
+        draws.update(_dyn_draws(k_dyn, jenv.model))
+    if jenv.perturb_interval and jenv.perturb_bodies:
+        draws["pert.event"] = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, jenv.perturb_interval))(ev2))
+
+        def pert(k):
+            ks = jax.random.split(k, len(jenv.perturb_bodies) + 1)
+            out = {}
+            for i in range(len(jenv.perturb_bodies)):
+                kf, kt, kz = jax.random.split(ks[i], 3)
+                out[f"pert.force{i}"] = jax.random.uniform(kf, (3,), minval=-jenv.perturb_force, maxval=jenv.perturb_force)
+                out[f"pert.torque{i}"] = jax.random.uniform(kt, (3,), minval=-jenv.perturb_torque, maxval=jenv.perturb_torque)
+                out[f"pert.keep{i}"] = 1 - jax.random.bernoulli(kz, 0.5).astype(jnp.int32)
+            return out
+
+        draws.update(_np(jax.vmap(pert)(k_pert)))
+    if isinstance(jenv, JaxJvrcWalkRoughEnv):
+        k1, k2, k3 = (jnp.stack(x) for x in zip(*[jax.random.split(k, 3) for k in k_task]))
+        draws.update(_walking_step_draws(k1))
+        draws["hfield.rejitter"] = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, 200))(k2))
+        draws["hfield"] = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (16, 16), minval=0.0, maxval=0.035))(k3))
+    return draws
+
+
+def _assert_terrain(tt, jt, exact):
+    for f in ("pos", "size", "yaw", "floor_z", "hfield", "hfield_x0y0", "hfield_cell"):
+        mine, ref = getattr(tt, f), getattr(jt, f)
+        assert (mine is None) == (ref is None), f
+        if mine is None:
+            continue
+        if exact:
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(ref), err_msg=f)
+        else:
+            np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0, atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["jvrc_step", "jvrc_walk_rough"])
+def test_terrain_env_reset_and_step_match_jax(name):
+    """Reset at training iteration 11000 (full stair height for jvrc_step)
+    and 3 steps, with every JAX draw injected: terrain, task state, obs,
+    reward terms and done."""
+    jenv, tenv = {
+        "jvrc_step": (JaxJvrcStepEnv, JvrcStepEnv),
+        "jvrc_walk_rough": (JaxJvrcWalkRoughEnv, JvrcWalkRoughEnv),
+    }[name]
+    jenv, tenv = jenv(), tenv(device="cpu")
+    assert tenv.obs_size == jenv.obs_size == (39 if name == "jvrc_step" else 37)
+    n, itr = 8, 11000
+    keys = jax.random.split(jax.random.PRNGKey(11), n)
+    js = jax.jit(jenv.reset_batch)(keys, jnp.full((n,), itr, jnp.int32))
+    ts = tenv.reset_batch(n, InjectedDraws(_env_reset_draws(jenv, keys)), itr)
+    # both step on terrain at R=1 (the port's wrapper pins it)
+    assert jenv.has_terrain and kernel_reuse(tenv._terrain(ts.task), tenv.physics_reuse) == jenv.physics_reuse == 1
+    _assert_terrain(tenv._terrain(ts.task), jax.vmap(jenv._terrain)(js.task), exact=name != "jvrc_step")
+    np.testing.assert_allclose(ts.obs.numpy(), np.asarray(js.obs), rtol=0, atol=1e-3)
+    if name == "jvrc_step":
+        np.testing.assert_array_equal(ts.task.mode.numpy(), np.asarray(js.task.mode))
+        np.testing.assert_array_equal(ts.task.seq_len.numpy(), np.asarray(js.task.seq_len))
+        assert len(set(ts.task.mode.tolist())) >= 3  # several stepping modes
+    else:
+        np.testing.assert_array_equal(ts.task.walk.mode.numpy(), np.asarray(js.task.walk.mode))
+
+    rng = np.random.default_rng(1)
+    jstep = jax.jit(jenv.step_batch)
+    for _ in range(STEPS):
+        actions = (0.2 * rng.standard_normal((n, 12))).astype(np.float32)
+        draws = InjectedDraws(_env_step_draws(jenv, js.key))
+        js = jstep(js, jnp.asarray(actions))
+        ts = tenv.step_batch(ts, torch.tensor(actions), draws)
+        _assert_terrain(tenv._terrain(ts.task), jax.vmap(jenv._terrain)(js.task), exact=name != "jvrc_step")
+        np.testing.assert_allclose(ts.obs.numpy(), np.asarray(js.obs), rtol=0, atol=1e-3)
+        np.testing.assert_allclose(ts.reward_components.numpy(), np.asarray(js.reward_components), rtol=0, atol=1e-3)
+        np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
+        np.testing.assert_allclose(ts.dyn.xfrc.numpy(), np.asarray(js.dyn.xfrc), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(ts.dyn.body_mass.numpy(), np.asarray(js.dyn.body_mass), rtol=0, atol=1e-6)
+
+
+def test_plan_bank_matches_jax():
+    plans, lengths = plan_bank()
+    jplans, jlengths = jax_plan_bank()
+    np.testing.assert_array_equal(plans, jplans)
+    np.testing.assert_array_equal(lengths, jlengths)
+
+
+def test_stepping_sequences_and_terrain_match_jax():
+    """make_sequence over all six modes and four training iterations and
+    make_terrain exactly, transform_sequence to 1e-6; the FORWARD stair
+    height follows the iteration (0 before 3000, 0.1 from 11000 on)."""
+    n, period = 240, 88
+    plans, lengths = jax_plan_bank()
+    keys = jax.random.split(jax.random.PRNGKey(2), n)
+    mode = np.arange(n) % 6
+    phase = np.where(np.arange(n) % 4 < 2, 0, period // 2)
+    iteration = np.array([0, 5000, 11000, 20000])[(np.arange(n) // 6) % 4]
+    ref_seq, ref_len = jax.vmap(
+        lambda k, m, p, i: jstepping.make_sequence(k, m, p, period, i, jnp.asarray(plans), jnp.asarray(lengths))
+    )(keys, jnp.asarray(mode), jnp.asarray(phase), jnp.asarray(iteration, jnp.int32))
+
+    def seq_draws(k):  # make_sequence's draws from its own key (no reset split)
+        k0, k1, k2 = jax.random.split(k, 3)
+        ka, kb = jax.random.split(k0)
+        return {
+            "step.height_sign": jax.random.bernoulli(k1, 0.5).astype(jnp.int32),
+            "step.inplace_size": jax.random.uniform(k2, (), minval=-0.05, maxval=0.05),
+            "step.first_y": jax.random.uniform(ka, (), minval=0.095, maxval=0.105),
+            "step.c": jax.random.randint(kb, (), 2, 4),
+            "step.lateral_side": jax.random.bernoulli(k0, 0.5).astype(jnp.int32),
+            "step.plan": jax.random.randint(k0, (), 0, plans.shape[0]),
+        }
+
+    seq, length = stepping.make_sequence(
+        InjectedDraws(_np(jax.vmap(seq_draws)(keys))), torch.tensor(mode), torch.tensor(phase), period,
+        torch.tensor(iteration), torch.tensor(plans), torch.tensor(lengths, dtype=torch.int64),
+    )
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(ref_seq))
+    np.testing.assert_array_equal(length.numpy(), np.asarray(ref_len))
+    fwd = mode == stepping.FORWARD
+    expected_h = np.clip((iteration - 3000) / 8000, 0, 1) * 0.1
+    np.testing.assert_allclose(np.abs(np.diff(seq.numpy()[fwd, :19, 2], axis=1)).max(1), expected_h[fwd], atol=1e-6)
+
+    rng = np.random.default_rng(3)
+    lfoot, rfoot = (rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32) for _ in range(2))
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    ref_world = jax.vmap(jstepping.transform_sequence)(ref_seq, jnp.asarray(lfoot), jnp.asarray(rfoot), jnp.asarray(yaw))
+    world = stepping.transform_sequence(seq, torch.tensor(lfoot), torch.tensor(rfoot), torch.tensor(yaw))
+    # XLA may fuse the rotation into FMAs: one rounding apart on O(1) values
+    np.testing.assert_allclose(world.numpy(), np.asarray(ref_world), rtol=0, atol=1e-6)
+    ref_terrain = jax.vmap(jstepping.make_terrain)(ref_world, ref_len, jnp.asarray(mode))
+    terrain = stepping.make_terrain(torch.tensor(np.asarray(ref_world)), length, torch.tensor(mode))
+    _assert_terrain(terrain, ref_terrain, exact=True)
+
+
+def test_stair_curriculum_follows_reset_iteration():
+    """reset_batch's iteration sets the FORWARD stair height of jvrc_step."""
+    tenv = JvrcStepEnv(device="cpu")
+    n = 4
+    draws = {
+        "step.mode": np.full(n, stepping.FORWARD), "step.phase_flip": np.ones(n, int), "step.height_sign": np.ones(n, int),
+        "step.inplace_size": np.zeros(n, np.float32), "step.first_y": np.full(n, 0.1, np.float32), "step.c": np.full(n, 2),
+        "step.lateral_side": np.ones(n, int), "step.plan": np.zeros(n, int),
+    }
+    for itr, h in ((0, 0.0), (3000, 0.0), (7000, 0.05), (11000, 0.1), (50000, 0.1)):
+        ts = tenv.reset_batch(n, InjectedDraws(draws), itr)
+        z = ts.task.sequence[:, :19, 2].numpy()
+        np.testing.assert_allclose(np.diff(z, axis=1).max(1), h, atol=1e-6)
+        assert np.all(tenv._terrain(ts.task).floor_z.numpy() == -2.0)

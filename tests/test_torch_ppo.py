@@ -100,6 +100,37 @@ def test_convert_transposes_flax_kernels(setup):
     np.testing.assert_array_equal(critic.value.weight.detach().numpy(), head.T)
 
 
+def test_convert_matches_jax_policy_on_jvrc_step():
+    """Flax parameters for jvrc_step's 39-D observations, carried over by
+    rl/convert.py, give the port the JAX policy and value (1e-5 absolute),
+    with jvrc_step's fixed observation normalization on both sides."""
+    from learninghumanoidwalking_tpu.envs.jvrc_step import JvrcStepEnv as JaxJvrcStepEnv
+    from learninghumanoidwalking_tpu_torch.envs.jvrc_step import JvrcStepEnv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jenv, tenv = JaxJvrcStepEnv(), JvrcStepEnv(device="cpu")
+    assert jenv.obs_size == tenv.obs_size == 39
+    kw = dict(num_envs=8, rollout_len=4, minibatch_size=16, epochs=1, net_dtype="float32")
+    j = jppo.PPO(jenv, jppo.PPOConfig(**kw))
+    t = ppo.PPO(tenv, ppo.PPOConfig(**kw), device="cpu")
+    ka, kc = jax.random.split(jax.random.PRNGKey(1))
+    a_params = j.actor_def.init(ka, jnp.zeros((1, 39)))
+    c_params = j.critic_def.init(kc, jnp.zeros((1, 39)))
+    actor = networks.GaussianActor(39, tenv.action_size)
+    critic = networks.Critic(39)
+    actor.load_state_dict(convert.actor_state_dict(convert.flatten_params(a_params), tenv.action_size))
+    critic.load_state_dict(convert.critic_state_dict(convert.flatten_params(c_params)))
+    jn = jnorm.init_norm(None, jenv.obs_mean, jenv.obs_std)
+    tn = convert.running_norm(jn.mean, jn.var, jn.count)
+    obs = (np.random.default_rng(4).standard_normal((N_MB, 39)) * 0.5).astype(np.float32)
+    jm, jls = j._policy(a_params, jn, jnp.asarray(obs))
+    tm, tls = t._policy(actor, tn, torch.as_tensor(obs))
+    np.testing.assert_allclose(tm.detach().numpy(), np.asarray(jm), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tls.detach().numpy(), np.asarray(jls), rtol=0, atol=1e-5)
+    tv = t._value(critic, tn, torch.as_tensor(obs))
+    np.testing.assert_allclose(tv.detach().numpy(), np.asarray(j._value(c_params, jn, jnp.asarray(obs))), rtol=0, atol=1e-5)
+
+
 def test_networks_match_jax(setup):
     j, t, a_params, c_params, actor, critic, jn, tn = setup
     obs = _minibatch(2)[0]

@@ -1,13 +1,15 @@
-"""CPU smoke of the port's main path: PPO on jvrc_walk through the same
-entry points chip_smoke.py drives on the card (make_env -> PPO -> train),
-at a small size: 8 envs, rollout 4, 2 iterations, (32, 32) networks.
+"""CPU smoke of the port's training paths: PPO on jvrc_walk, jvrc_step and
+jvrc_walk_rough through the same entry points chip_smoke.py drives on the
+card (make_env -> PPO -> train), at a small size: a few envs, a short
+rollout, 2 iterations, (32, 32) networks.
 
-On the CPU the physics runs the plain version, so the K1 launch counter
-must stay at 0; every loss must be finite.
+On the CPU the physics runs the plain version, so the K1, K2 and K3 launch
+counters must stay at 0; every loss must be finite.
 """
 
 import math
 
+import pytest
 import torch
 
 from learninghumanoidwalking_tpu_torch.envs.registry import make_env
@@ -20,10 +22,11 @@ def test_two_training_iterations_on_cpu():
     cfg = PPOConfig(num_envs=8, rollout_len=4, minibatch_size=16, epochs=2, net_dtype="float32",
                     hidden=(32, 32), input_norm_iters=1, seed=0)
     trainer = PPO(env, cfg, device="cpu")
-    substep_kernel.counter.reset()
+    for c in substep_kernel.counters.values():
+        c.reset()
     before = [p.detach().clone() for p in trainer.init_state().actor.parameters()]
     ts, history = trainer.train(2, verbose=False)
-    assert substep_kernel.counter.launches == 0
+    assert all(c.launches == 0 for c in substep_kernel.counters.values())
     assert len(history) == 2 and ts.iteration == 2
     for m in history:
         for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl", "mean_reward"):
@@ -32,6 +35,24 @@ def test_two_training_iterations_on_cpu():
     assert any(float((a.detach() - b).abs().max()) > 0 for a, b in zip(after, before))
     assert ts.env_state.obs.shape == (8, 37) and torch.isfinite(ts.env_state.obs).all()
     assert int(ts.env_state.iteration[0]) == 2
+
+
+@pytest.mark.parametrize("name, obs_size", [("jvrc_step", 39), ("jvrc_walk_rough", 37)])
+def test_two_terrain_training_iterations_on_cpu(name, obs_size):
+    env = make_env(name, device="cpu")
+    cfg = PPOConfig(num_envs=4, rollout_len=3, minibatch_size=6, epochs=1, net_dtype="float32",
+                    hidden=(32, 32), seed=0)
+    trainer = PPO(env, cfg, device="cpu")
+    for c in substep_kernel.counters.values():
+        c.reset()
+    ts, history = trainer.train(2, verbose=False)
+    assert all(c.launches == 0 for c in substep_kernel.counters.values())
+    assert len(history) == 2 and ts.iteration == 2
+    for m in history:
+        for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl", "mean_reward"):
+            assert math.isfinite(m[k]), (k, m[k])
+    assert ts.env_state.obs.shape == (4, obs_size) and torch.isfinite(ts.env_state.obs).all()
+    assert env._terrain(ts.env_state.task).floor_z.shape == (4,)
 
 
 def test_warmup_iteration_updates_running_norm():
