@@ -8,10 +8,11 @@ Phases, each printing one line with the seconds elapsed since the start and
 the phase's own seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the two kernel libraries of learninghumanoidwalking_tpu_torch/ops/
-   csrc/control_step.cu, built at once with nvcc into ctypes-loaded
-   libraries: K1 (flat floor) and the terrain build that K2 (terrain boxes)
-   and K3 (heightfield) share;
+2. build: the three kernel libraries of learninghumanoidwalking_tpu_torch/
+   ops/csrc/control_step.cu, built at once with nvcc into ctypes-loaded
+   libraries: K1 (flat floor), the terrain build that K2 (terrain boxes)
+   and K3 (heightfield) share, and the motor build (K4: K1 plus the learned
+   motor hook);
 3. each kernel against its plain PyTorch version (physics/batched.py) on the
    card, on seeded states and terrain after an env reset: K1 on jvrc_walk,
    K2 on jvrc_step (20 stepping-stone boxes), K3 on jvrc_walk_rough (16x16
@@ -21,17 +22,29 @@ the phase's own seconds:
    frames included, is held to the plain version env by env, measured from
    a float64 run of the plain version (see compare_fields): every env of K1
    and K2 must pass; K3 may admit a few chaotic envs, each with a second
-   witness and a substep-by-substep replay (see admit_k3). Both
+   witness and a substep-by-substep replay (see admit_chaotic). Both
    launches go to bench.py's two-part cross-compiler gate (part 2, 20 settled
    steps, at B=4096 and for the step launch only: it measures PD statics).
    K2 must show active box-slot contacts and K3 active heightfield contacts
-   with tilted normals in every launch. Both launches are timed;
-4. the training paths: PPO on jvrc_walk (3 iterations), jvrc_step and
-   jvrc_walk_rough (2 each) at bench.py's workload (32768 envs, rollout 16,
-   minibatch 32768) through make_env -> PPO -> train, with the launches of
-   every kernel counted over each path (1 initial reset, then 16 steps + 1
-   reset-pool settle per iteration, all in the path's own kernel) and every
-   loss finite;
+   with tilted normals in every launch. Both launches are timed.
+   K4 on jvrc_walk with the motor config (envs/configs/jvrc_motor.json):
+   the step launch (R=1) from the state of two plain control steps after a
+   seeded reset, with the motor counts set per env to 0, 10, 24, 25, 26,
+   27, 50, 1001 in turn (warmup, warmup ending inside the launch, both push
+   parities, a large count), so that the net runs in most env-substeps.
+   The same rule holds the env outputs and the motor histories (a few
+   chaotic envs admitted as for K3), and the counts must be equal; the
+   gate as above; timed, with the layout transposes of the motor
+   histories timed apart. Then once more with seeded nets of std 0.3, whose
+   MLP term is O(10%) of the torque (the config's nets leave it near 1e-4),
+   held by the same rule, without the gate;
+4. the training paths: PPO on jvrc_walk (3 iterations), jvrc_step,
+   jvrc_walk_rough and jvrc_walk with the motor config (2 each) at
+   bench.py's workload (32768 envs, rollout 16, minibatch 32768) through
+   make_env -> PPO -> train, with the launches of every kernel counted over
+   each path (1 initial reset, then 16 steps + 1 reset-pool settle per
+   iteration, all in the path's own kernel; on the motor path the steps in
+   K4 and the settles in K1) and every loss finite;
 5. the kernel table.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -64,14 +77,18 @@ def main() -> int:
         return 2
 
     import dataclasses
+    import os
+    import types
 
     import numpy as np
 
+    from learninghumanoidwalking_tpu_torch.envs.humanoid import CONFIG_DIR
     from learninghumanoidwalking_tpu_torch.envs.registry import make_env
     from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
     from learninghumanoidwalking_tpu_torch.physics import batched
     from learninghumanoidwalking_tpu_torch.physics import engine as eng
     from learninghumanoidwalking_tpu_torch.physics.model import tree_map
+    from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
     from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
     from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
 
@@ -94,8 +111,10 @@ def main() -> int:
 
     # ---- phase 3: each kernel against its plain version -------------------
     F32_PEAK, HBM_BPS = 67e12, 3.35e12  # H100 SXM: f32 non-tensor FLOP/s, HBM bytes/s
-    paths = {"K1": "jvrc_walk", "K2": "jvrc_step", "K3": "jvrc_walk_rough"}
-    envs = {name: make_env(env_name, device=dev) for name, env_name in paths.items()}
+    motor_json = os.path.join(CONFIG_DIR, "jvrc_motor.json")
+    paths = {"K1": "jvrc_walk", "K2": "jvrc_step", "K3": "jvrc_walk_rough", "K4": "jvrc_walk (jvrc_motor.json)"}
+    envs = {name: make_env(env_name, device=dev) for name, env_name in paths.items() if name != "K4"}
+    envs["K4"] = make_env("jvrc_walk", path_to_json=motor_json, device=dev)
     model_cpu = {name: tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, env.model) for name, env in envs.items()}
 
     def seeded_reset(env, batch: int, seed: int):
@@ -145,14 +164,27 @@ def main() -> int:
         "cforce": lambda s: s.contact.force, "cmask": lambda s: s.contact.mask,
         "cnormal": lambda s: s.contact.frame[..., 0, :], "cframe": lambda s: s.contact.frame,
     }
+    # K4 adds the motor histories (the count is compared exactly, apart), on
+    # (PhysicsState, MotorState) pairs seen as one object (joined)
+    motor_fields = {**fields, "qdot_hist": lambda s: s.motor.qdot_hist, "ctau_hist": lambda s: s.motor.ctau_hist}
+
+    def joined(out):
+        """A kernel or plain-version output; a (PhysicsState, MotorState)
+        pair as one object with the state's fields and ``motor``."""
+        if not isinstance(out, tuple):
+            return out
+        state, motor = out
+        return types.SimpleNamespace(**{f.name: getattr(state, f.name) for f in dataclasses.fields(state)}, motor=motor)
+
     # max_abs_err reports these
     abs_fields = ("qpos", "xpos", "xquat", "act_torque", "cpos", "cdist", "cmask", "cnormal")
     RTOL, SENS = 1e-4, 10.0
     # K1 and K2 must pass that rule in every env. K3 (jvrc_walk_rough:
-    # dynamics randomization, soft contacts on a heightfield) has envs whose
-    # state amplifies rounding so strongly that one float32 witness
-    # underestimates it. Such an env is admitted (admit_k3) only if
-    #  - at most K3_SHARE of the launch's envs need it;
+    # dynamics randomization, soft contacts on a heightfield) and K4 (the
+    # motor path, from states two control steps after a reset) have envs
+    # whose state amplifies rounding so strongly that one float32 witness
+    # underestimates it. Such an env is admitted (admit_chaotic) only if
+    #  - at most ADMIT_SHARE of the launch's envs need it;
     #  - a second witness shows the chaos: the env passes the same rule with
     #    the largest distance from float64 of four other float32 runs of the
     #    plain version, one on the CPU and three on the card from the input
@@ -167,7 +199,7 @@ def main() -> int:
     #    differ from float64's, and only at a slot whose float64 distance
     #    lies within FLIP_DIST of the margin (that group's other fields then
     #    follow the switch and are not compared).
-    K3_SHARE, ULP4, FLIP_DIST = 1e-3, 4 * 2.0**-23, 1e-6
+    ADMIT_SHARE, ULP4, FLIP_DIST = 1e-3, 4 * 2.0**-23, 1e-6
 
     to64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
     to32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() else x
@@ -175,33 +207,43 @@ def main() -> int:
     to_dev = lambda x: x.to(dev) if torch.is_tensor(x) else x
 
     def plain_f64(args, **kw):
+        """The plain version in float64 (the motor weights and histories
+        cast too)."""
         prev = torch.get_default_dtype()
         torch.set_default_dtype(torch.float64)
         try:
-            return batched.pd_substeps_batched(*[tree_map(to64, a) for a in args], **kw)
+            return batched.pd_substeps_batched(*[tree_map(to64, a) for a in args], **{k: tree_map(to64, v) for k, v in kw.items()})
         finally:
             torch.set_default_dtype(prev)
 
     def plain_cpu(args, **kw):
         """The plain float32 version on the CPU, its outputs back on the card."""
-        return tree_map(to_dev, batched.pd_substeps_batched(*[tree_map(to_cpu, a) for a in args], **kw))
+        out = batched.pd_substeps_batched(*[tree_map(to_cpu, a) for a in args], **{k: tree_map(to_cpu, v) for k, v in kw.items()})
+        return tree_map(to_dev, out)
 
     def take(tree, idx, batch: int):
-        """Envs idx of a batch-leading tree."""
+        """Envs idx of a batch-leading tree (or joined output)."""
+        if isinstance(tree, types.SimpleNamespace):
+            return types.SimpleNamespace(**{k: take(v, idx, batch) for k, v in vars(tree).items()})
         return tree_map(lambda x: x[idx] if torch.is_tensor(x) and x.dim() > 0 and x.shape[0] == batch else x, tree)
 
-    def dist_f64(out, out_64) -> dict:
+    def take_kw(kw, idx, batch: int):
+        """The keyword arguments of a launch for envs idx (the MotorState of
+        ``motor``; the motor weights are not batched)."""
+        return kw if "motor" not in kw else {**kw, "motor": (kw["motor"][0], take(kw["motor"][1], idx, batch))}
+
+    def dist_f64(out, out_64, flds=fields) -> dict:
         """Per field, |out - float64| as (B, n) float64."""
         n = out_64.qpos.shape[0]
-        return {name: (get(out).reshape(n, -1).double() - get(out_64).reshape(n, -1).double()).abs() for name, get in fields.items()}
+        return {name: (get(out).reshape(n, -1).double() - get(out_64).reshape(n, -1).double()).abs() for name, get in flds.items()}
 
-    def compare_fields(out_k, out_p, out_64, e_w=None):
+    def compare_fields(out_k, out_p, out_64, e_w=None, flds=fields):
         """(per-field results, per-env failure of any field, per field the
         share of its limit per env); the witness's distance from float64 is
         the plain version's, or ``e_w``."""
-        e_all, e_w = dist_f64(out_k, out_64), e_w or dist_f64(out_p, out_64)
+        e_all, e_w = dist_f64(out_k, out_64, flds), e_w or dist_f64(out_p, out_64, flds)
         res, shares, failing = {}, {}, torch.zeros(out_k.qpos.shape[0], dtype=torch.bool, device=dev)
-        for name, get in fields.items():
+        for name, get in flds.items():
             k, p, x = (get(o).reshape(o.qpos.shape[0], -1).double() for o in (out_k, out_p, out_64))
             e_k = e_all[name]
             tight = RTOL * (1.0 + x.abs().amax(1, keepdim=True))
@@ -226,12 +268,13 @@ def main() -> int:
         """[share of the limit, field] of env j's worst field."""
         return max([float(sh[j]), name] for name, sh in shares.items())
 
-    def replay(args, kw, model_cpu):
+    def replay(args, kw, model_cpu, flds):
         """Per env of a (small) batch: the kernel's worst ratio, over fields
         and reuse groups started from the float64 states, of its error
         against float64 to SENS x the plain versions' + ULP4 (1 + |x64|)
         (share of the limit, <= 1 passes, with its group and field), and its
-        contact switches (near the margin; anywhere else)."""
+        contact switches (near the margin; anywhere else). With a motor, its
+        state is carried from group to group like the physics."""
         model, dyn, physics, target, n, dt, terrain = args
         group = batched.valid_reuse(n, kw.get("reuse_interval", 1))
         batch = physics.qpos.shape[0]
@@ -240,18 +283,21 @@ def main() -> int:
         near_switch = torch.zeros(batch, dtype=torch.int64, device=dev)
         far_switch = torch.zeros(batch, dtype=torch.bool, device=dev)
         s_64 = tree_map(to64, physics)
+        m_64 = tree_map(to64, kw["motor"][1]) if "motor" in kw else None
+        group_kw = lambda m: kw if m is None else {**kw, "motor": (kw["motor"][0], m)}
         for g in range(n // group):
-            g_args = (model, dyn, tree_map(to32, s_64), target, group, dt, terrain)
-            k = sk.pd_substeps_kernel(*g_args, **kw)
-            x_64 = plain_f64(g_args, **kw)  # float64 from the same input
-            e_k = dist_f64(k, x_64)
-            e_p, e_c = dist_f64(batched.pd_substeps_batched(*g_args, **kw), x_64), dist_f64(plain_cpu((model_cpu, *g_args[1:]), **kw), x_64)
+            g_args, g_kw = (model, dyn, tree_map(to32, s_64), target, group, dt, terrain), group_kw(tree_map(to32, m_64))
+            k = joined(sk.pd_substeps_kernel(*g_args, **g_kw))
+            x_64 = joined(plain_f64(g_args, **g_kw))  # float64 from the same input
+            e_k = dist_f64(k, x_64, flds)
+            e_p = dist_f64(joined(batched.pd_substeps_batched(*g_args, **g_kw)), x_64, flds)
+            e_c = dist_f64(joined(plain_cpu((model_cpu, *g_args[1:]), **g_kw)), x_64, flds)
             flip = k.contact.mask != x_64.contact.mask
             near = (x_64.contact.dist - eng.CONTACT_MARGIN).abs() <= FLIP_DIST
             switched = flip.any(1)
             near_switch += (switched & ~(flip & ~near).any(1)).long()
             far_switch |= (flip & ~near).any(1)
-            for name, get in fields.items():
+            for name, get in flds.items():
                 if name == "cmask":
                     continue
                 x = get(x_64).reshape(batch, -1).double().abs().amax(1)
@@ -260,15 +306,16 @@ def main() -> int:
                 for j in torch.nonzero(share > worst).flatten().tolist():
                     where[j] = (g, name)
                 worst = torch.maximum(worst, share)
-            s_64 = plain_f64((model, dyn, s_64, target, group, dt, terrain), **kw)
+            nxt = plain_f64((model, dyn, s_64, target, group, dt, terrain), **group_kw(m_64))
+            s_64, m_64 = nxt if m_64 is not None else (nxt, None)
         return worst, where, near_switch, far_switch
 
-    def admit_k3(args, kw, failing, out_k, out_p, out_64, model_cpu, batch: int) -> tuple[torch.Tensor, dict]:
-        """(failing envs not admitted, report): see K3_SHARE above. The
+    def admit_chaotic(args, kw, failing, out_k, out_p, out_64, model_cpu, batch: int, flds=fields) -> tuple[torch.Tensor, dict]:
+        """(failing envs not admitted, report): see ADMIT_SHARE above. The
         replay also runs on 32 passing envs, whose ratios show what the
         kernel's arithmetic gives where nothing is chaotic."""
         bad = torch.nonzero(failing).flatten()
-        cap = int(K3_SHARE * batch)
+        cap = int(ADMIT_SHARE * batch)
         if len(bad) > cap:
             return bad, dict(envs_failing_rule=len(bad), cap=cap)
         gen = torch.Generator(device=dev)
@@ -276,25 +323,26 @@ def main() -> int:
         pool = torch.nonzero(~failing).flatten()
         idx = torch.cat([bad, pool[torch.randperm(len(pool), generator=gen, device=dev)[:32]]])
         sub_args = (args[0], *take(args[1:], idx, batch))  # the model is not batched
+        sub_kw = take_kw(kw, idx, batch)
         o_k, o_p, o_64 = (take(o, idx, batch) for o in (out_k, out_p, out_64))
         # the second witness: the plain version on the CPU, and three times on
         # the card from the input changed by one ulp
-        e_2 = dist_f64(plain_cpu((model_cpu, *sub_args[1:]), **kw), o_64)
+        e_2 = dist_f64(joined(plain_cpu((model_cpu, *sub_args[1:]), **sub_kw)), o_64, flds)
         model, dyn, physics, *rest = sub_args
         ulp = lambda x: x * (1.0 + 2.0**-23 * torch.sign(torch.randn(x.shape, generator=gen, device=dev)))
         for _ in range(3):
             moved = dataclasses.replace(physics, qpos=ulp(physics.qpos), qvel=ulp(physics.qvel))
-            e_ulp = dist_f64(batched.pd_substeps_batched(model, dyn, moved, *rest, **kw), o_64)
-            e_2 = {f: torch.maximum(e_2[f], e_ulp[f]) for f in fields}
-        _, _, sh_card = compare_fields(o_k, o_p, o_64)
-        _, fail_2, sh_2 = compare_fields(o_k, o_p, o_64, e_w=e_2)
-        e_k, e_p = dist_f64(o_k, o_64), dist_f64(o_p, o_64)
+            e_ulp = dist_f64(joined(batched.pd_substeps_batched(model, dyn, moved, *rest, **sub_kw)), o_64, flds)
+            e_2 = {f: torch.maximum(e_2[f], e_ulp[f]) for f in flds}
+        _, _, sh_card = compare_fields(o_k, o_p, o_64, flds=flds)
+        _, fail_2, sh_2 = compare_fields(o_k, o_p, o_64, e_w=e_2, flds=flds)
+        e_k, e_p = dist_f64(o_k, o_64, flds), dist_f64(o_p, o_64, flds)
 
         def from_f64(j):  # env j's distances from float64 in the field it fails most
             f = worst_share(sh_card, j)[1]
             return dict(field=f, kernel=float(e_k[f][j].max()), plain=float(e_p[f][j].max()), second_witness=float(e_2[f][j].max()))
 
-        worst, where, near_switch, far_switch = replay(sub_args, kw, model_cpu)
+        worst, where, near_switch, far_switch = replay(sub_args, sub_kw, model_cpu, flds)
         nb = len(bad)
         ok_env = ~fail_2[:nb] & (worst[:nb] <= 1.0) & (near_switch[:nb] <= 1) & ~far_switch[:nb]
         sample = worst[nb:]
@@ -376,7 +424,7 @@ def main() -> int:
             unexplained = torch.nonzero(failing).flatten()
             res[launch]["envs_failing_rule"] = len(unexplained)
             if name == "K3" and len(unexplained):
-                unexplained, res[launch]["k3_admission"] = admit_k3(args, kw, failing, out_k, out_p, out_64, model_cpu[name], batch)
+                unexplained, res[launch]["admission"] = admit_chaotic(args, kw, failing, out_k, out_p, out_64, model_cpu[name], batch)
             res[launch]["envs_failing"] = len(unexplained)
             ok = (
                 ok and bool(torch.isfinite(out_k.qpos).all()) and q_err < 5e-3 and grf_p95 < 0.04
@@ -411,12 +459,135 @@ def main() -> int:
         res["max_abs_err"] = max(res[n]["fields"][f]["max_abs_err"] for n in launches for f in abs_fields)
         return ok, res
 
+    # K4's launch input: motor counts per env, in turn
+    K4_COUNTS = (0, 10, 24, 25, 26, 27, 50, 1001)
+
+    def plain_step(env, st, actions, draws):
+        """HumanoidEnv.step_batch with the motor physics of the plain version."""
+        target = env._pre_step(st, actions)
+        physics, motor = batched.pd_substeps_batched(
+            env.model, st.dyn, st.physics, target, env.frame_skip, env.sim_dt, reuse_interval=1, motor=(env.motor_params, st.motor)
+        )
+        return env._post_step(dataclasses.replace(st, motor=motor), physics, actions, target, draws)
+
+    # K4 is held with two sets of nets. The config's (init_motor_params:
+    # 0.01-std weights, zero biases, skip 1) leave the MLP term near 1e-4 of
+    # the torque, below the rule's limit on act_torque; seeded nets of std
+    # NET_STD (weights and biases; skip 1 + NET_STD / 3 N(0, 1), distinct per
+    # joint) make it O(10%), so that a fault in the MLP (a transposed weight,
+    # a dropped tanh, a misindexed bias or skip) shows in the torque and the
+    # state. Both print the MLP term's share of the torque (net_tau_share).
+    NET_STD = 0.3
+
+    def scaled_nets(seed: int) -> dict:
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        params = {k: (NET_STD * torch.randn(v.shape, generator=gen)).to(dev) if torch.is_tensor(v) else v
+                  for k, v in envs["K4"].motor_params.items()}
+        params["skip"] = 1.0 + params["skip"] / 3
+        return params
+
+    def net_tau_share(params, mstate) -> float:
+        """The MLP term's share of the applied torque, sum |MLP| / sum
+        |skip * newest ctau + MLP| over the joints of the envs whose net ran
+        in the launch's last substep, from the histories it ended with."""
+        ran = mstate.count > sk.HIST_LEN
+        tau = motor_mod.motor_forward_b(params, mstate.qdot_hist[ran], mstate.ctau_hist[ran])
+        mlp = tau - params["skip"] * mstate.ctau_hist[ran][:, -1]
+        return float(mlp.abs().sum() / tau.abs().sum())
+
+    def check_motor_launch(batch: int, seed: int, full_gate: bool, reps_kernel: int, reps_plain: int, params=None):
+        """K4 against its plain version with the env's nets, or ``params``."""
+        env = envs["K4"]
+        model, params = env.model, env.motor_params if params is None else params
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        draws = Draws(gen)
+        st = env.reset_batch(batch, draws)
+        for _ in range(2):  # fills the histories: count 50
+            st = plain_step(env, st, 0.1 * torch.randn((batch, model.nu), generator=gen, device=dev), draws)
+        counts = torch.tensor(K4_COUNTS, dtype=torch.int32, device=dev).repeat(batch // len(K4_COUNTS) + 1)[:batch]
+        mstate = dataclasses.replace(st.motor, count=counts)
+        target = env.neutral_pose + 0.05 * torch.randn((batch, model.nu), generator=gen, device=dev)
+        reuse = sk.kernel_reuse(None, env.physics_reuse, motor=True)
+        args, kw = (model, st.dyn, st.physics, target, env.frame_skip, env.sim_dt, None), dict(reuse_interval=reuse, motor=(params, mstate))
+        out_k = sk.pd_substeps_kernel(*args, **kw)
+        torch.cuda.synchronize()
+        out_p = batched.pd_substeps_batched(*args, **kw)
+        out_64 = plain_f64(args, **kw)
+        torch.cuda.synchronize()
+        o_k, o_p, o_64 = joined(out_k), joined(out_p), joined(out_64)
+        q_err, grf_p95 = part1(o_k, o_p)
+        cmp, failing, _ = compare_fields(o_k, o_p, o_64, flds=motor_fields)
+        counts_equal = bool((out_k[1].count == out_p[1].count).all() and (out_k[1].count == out_64[1].count).all()
+                            and (out_k[1].count == counts + env.frame_skip).all())
+        # env-substeps of this launch in which the net ran (count >= 25 after the push)
+        runs = sum(int((counts.long() + j >= sk.HIST_LEN).sum()) for j in range(env.frame_skip))
+        net_share = runs / (env.frame_skip * batch)
+        res = dict(qpos_maxerr=q_err, grf_relerr_p95=grf_p95, fields=cmp, counts_equal=counts_equal, net_share=net_share,
+                   net_tau_share=net_tau_share(params, out_p[1]),
+                   worst_env=worst_env(model, o_k, o_p, o_64),
+                   envs_failing_mirrored=int(compare_fields(o_p, o_k, o_64, flds=motor_fields)[1].sum()),
+                   envs_failing_rule=int(failing.sum()))
+        unexplained = torch.nonzero(failing).flatten()
+        if len(unexplained):
+            unexplained, res["admission"] = admit_chaotic(args, kw, failing, o_k, o_p, o_64, model_cpu["K4"], batch, motor_fields)
+        res["envs_failing"] = len(unexplained)
+        ok = (bool(torch.isfinite(o_k.qpos).all()) and q_err < 5e-3 and grf_p95 < 0.04 and len(unexplained) == 0
+              and counts_equal and net_share > 0.5)
+        if full_gate:
+            neutral = env.neutral_pose.expand(batch, -1)
+            (s_k, m_k), (s_p, m_p) = out_k, out_p
+            for _ in range(20):
+                s_k, m_k = sk.pd_substeps_kernel(model, st.dyn, s_k, neutral, env.frame_skip, env.sim_dt, reuse_interval=reuse, motor=(params, m_k))
+                torch.cuda.synchronize()
+                s_p, m_p = batched.pd_substeps_batched(model, st.dyn, s_p, neutral, env.frame_skip, env.sim_dt, reuse_interval=reuse, motor=(params, m_p))
+                torch.cuda.synchronize()
+            fn_k = torch.sum(s_k.contact.force[..., 0] * s_k.contact.mask, dim=1)
+            fn_p = torch.sum(s_p.contact.force[..., 0] * s_p.contact.mask, dim=1)
+            weight = float(np.sum(model.np("body_mass")) * 9.81)
+            res.update(settled_dz=float((s_k.qpos[:, 2] - s_p.qpos[:, 2]).abs().max()), settled_qpos_maxerr=float((s_k.qpos - s_p.qpos).abs().max()),
+                       settled_grf_relerr=float(((fn_k - fn_p).abs() / (fn_p.abs() + 1.0)).max()),
+                       grf_vs_weight=abs(float(fn_k.mean()) - weight) / weight, settled_counts_equal=bool((m_k.count == m_p.count).all()))
+            ok = (ok and res["settled_dz"] < 2e-3 and res["settled_qpos_maxerr"] < 8e-3 and res["settled_grf_relerr"] < 0.02
+                  and res["grf_vs_weight"] < 0.03 and res["settled_counts_equal"])
+        res["ms"] = time_ms(lambda: sk.pd_substeps_kernel(*args, **kw), reps_kernel)
+        res["plain_ms"] = time_ms(lambda: batched.pd_substeps_batched(*args, **kw), reps_plain)
+        # the layout transposes of the wrapper, timed apart (they are part of
+        # "ms"): batch-leading histories into the kernel's joint-major
+        # blocks, and the kernel's output views back into batch-leading
+        # tensors (what the rollout's auto-reset select writes)
+        res["transpose_in_ms"] = time_ms(lambda: sk.motor_blocks(params, mstate, dev), reps_kernel)
+        res["transpose_out_ms"] = time_ms(lambda: (out_k[1].qdot_hist.contiguous(), out_k[1].ctau_hist.contiguous()), reps_kernel)
+        flops = sk.flops_per_env_substep(model, reuse) * env.frame_skip * batch + sk.motor_flops_per_net(params) * runs
+        nbytes = sk.bytes_per_launch(model, batch, motor=params)
+        res.update(flops=flops, bytes=nbytes, bound_ms=1e3 * max(flops / F32_PEAK, nbytes / HBM_BPS),
+                   bound_by="operations" if flops / F32_PEAK >= nbytes / HBM_BPS else "bytes")
+        res["max_abs_err"] = max(cmp[f]["max_abs_err"] for f in abs_fields)
+        return ok, res
+
     for c in sk.counters.values():  # the comparisons' launches are not the main paths'
         c.reset()
     num_envs, rollout = 32768, 16
     cmp_results = {}
     for name in paths:
         for batch, seed, full_gate, reps_kernel, reps_plain in ((4096, 0, True, 10, 2), (num_envs, 10, False, 5, 1)):
+            if name == "K4":
+                # the env's nets (timed), then the scaled nets (a correctness check only)
+                for nets, params, gate, reps in (("config nets", None, full_gate, (reps_kernel, reps_plain)),
+                                                 (f"std {NET_STD} nets", scaled_nets(seed + 1), False, (1, 1))):
+                    ok, res = check_motor_launch(batch, seed, gate, *reps, params=params)
+                    cmp_results[(name if params is None else "K4 scaled", batch)] = dict(step=res, max_abs_err=res["max_abs_err"])
+                    log(f"phase 3 K4 ({paths[name]}, {nets}) vs plain, B={batch}: {'PASS' if ok else 'FAIL'} {json.dumps(res)}")
+                    log(f"phase 3 K4 {nets} B={batch} step {res['ms']:.1f} ms (bound {res['bound_ms']:.4f} ms, {res['bound_by']}; plain "
+                        f"{res['plain_ms']:.1f} ms; history transposes in {res['transpose_in_ms']:.2f} ms, out {res['transpose_out_ms']:.2f} ms) | "
+                        f"net ran in {res['net_share']:.3f} of env-substeps, MLP share of the torque {res['net_tau_share']:.3g} | envs failing "
+                        f"the rule {res['envs_failing_rule']}, with the roles swapped {res['envs_failing_mirrored']}, not admitted "
+                        f"{res['envs_failing']} | counts equal {res['counts_equal']}"
+                        + (f" | K4 admission {json.dumps(res['admission'])}" if "admission" in res else ""))
+                    if not ok:
+                        raise RuntimeError(f"K4 disagrees with its plain version at B={batch} ({nets})")
+                continue
             ok, res = check_launches(name, batch, seed, full_gate, reps_kernel, reps_plain)
             cmp_results[(name, batch)] = res
             log(f"phase 3 {name} ({paths[name]}) vs plain, B={batch}: {'PASS' if ok else 'FAIL'} {json.dumps(res)}")
@@ -430,13 +601,13 @@ def main() -> int:
                 r = res[launch]
                 log(f"phase 3 {name} B={batch} {launch}: envs failing the rule {r['envs_failing_rule']}, "
                     f"with the roles swapped {r['envs_failing_mirrored']}, not admitted {r['envs_failing']}"
-                    + (f" | K3 admission {json.dumps(r['k3_admission'])}" if "k3_admission" in r else ""))
+                    + (f" | K3 admission {json.dumps(r['admission'])}" if "admission" in r else ""))
             if not ok:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={batch}")
 
     # ---- phase 4: the training paths --------------------------------------
     path_launches, ok_all = {}, True
-    for name, n_itr in (("K1", 3), ("K2", 2), ("K3", 2)):
+    for name, n_itr in (("K1", 3), ("K2", 2), ("K3", 2), ("K4", 2)):
         env = envs[name]
         cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout, minibatch_size=32768, seed=0, net_dtype="bfloat16")
         trainer = PPO(env, cfg, device=dev)
@@ -457,25 +628,33 @@ def main() -> int:
         ts, history = trainer.train(n_itr, ts=ts0, verbose=False, on_iteration=on_iteration)
         torch.cuda.synchronize()
         launches = {k: c.launches for k, c in sk.counters.items()}
-        train_launches = launches[name] - init_launches[name]
-        expected = (trainer.warmup_iterations() + n_itr) * (rollout + 1)
-        others = {k: v for k, v in launches.items() if k != name}
+        # every settle (the initial reset, one reset pool per iteration) runs
+        # in the path's kernel, K1 on the motor path, whose steps run in K4
+        itrs = trainer.warmup_iterations() + n_itr
+        settle_kernel = "K1" if name == "K4" else name
+        expected = dict.fromkeys(sk.counters, 0)
+        expected[name] += itrs * rollout
+        expected[settle_kernel] += 1 + itrs
         losses = [m[k] for m in history for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl")]
         obs = ts.env_state.obs
         ok_path = (
-            init_launches[name] == 1
-            and train_launches == expected
-            and not any(others.values())
+            init_launches == {k: int(k == settle_kernel) for k in sk.counters}
+            and launches == expected
             and all(np.isfinite(losses))
             and tuple(obs.shape) == (num_envs, env.obs_size)
             and bool(torch.isfinite(obs).all())
         )
+        motor_note = ""
+        if name == "K4":
+            warm = float((ts.env_state.motor.count > sk.HIST_LEN).float().mean())
+            ok_path = ok_path and warm > 0.5
+            motor_note = f" | share of envs with motor count > 25 at the end {warm:.4f} (expected > 0.5)"
         path_launches[name] = launches[name]
         log(
-            f"phase 4 {paths[name]}: {'PASS' if ok_path else 'FAIL'} | {name} launches: init_state {init_launches[name]} "
-            f"(expected 1), train {train_launches} (expected ({trainer.warmup_iterations()} warmup + {n_itr} iterations) x "
-            f"({rollout} steps + 1 reset-pool settle) = {expected}); other kernels {others} (expected 0) | "
-            f"losses finite {all(np.isfinite(losses))} | peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            f"phase 4 {paths[name]}: {'PASS' if ok_path else 'FAIL'} | launches: init_state {init_launches}, in all {launches} "
+            f"(expected {expected}: ({trainer.warmup_iterations()} warmup + {n_itr} iterations) x {rollout} steps in {name}, "
+            f"1 + {itrs} settles in {settle_kernel}) | losses finite {all(np.isfinite(losses))} | "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{motor_note}"
         )
         ok_all = ok_all and ok_path
         del trainer, ts, ts0
@@ -483,7 +662,8 @@ def main() -> int:
         raise RuntimeError("a training path failed its checks")
 
     # ---- phase 5: kernels --------------------------------------------------
-    titles = {"K1": "K1 control_step (flat floor)", "K2": "K2 control_step (terrain boxes)", "K3": "K3 control_step (heightfield)"}
+    titles = {"K1": "K1 control_step (flat floor)", "K2": "K2 control_step (terrain boxes)", "K3": "K3 control_step (heightfield)",
+              "K4": "K4 control_step (motor hook, substep_kernel.py:1036)"}
     kernels = []
     for name in paths:
         step = cmp_results[(name, num_envs)]["step"]
@@ -494,7 +674,7 @@ def main() -> int:
                 "source": "learninghumanoidwalking_tpu_torch/ops/csrc/control_step.cu",
                 "replaces": "learninghumanoidwalking_tpu/ops/substep_kernel.py:1296",
                 "launches": path_launches[name],
-                "max_abs_err": max(cmp_results[(name, b)]["max_abs_err"] for b in (4096, num_envs)),
+                "max_abs_err": max(r["max_abs_err"] for (n, b), r in cmp_results.items() if n.startswith(name)),
                 "ms": step["ms"],
                 "plain_ms": step["plain_ms"],
                 "bound_ms": step["bound_ms"],
@@ -502,7 +682,7 @@ def main() -> int:
                 "library_ms": None,
             }
         )
-    log("phase 5 kernels: [K1, K2, K3]")
+    log("phase 5 kernels: [K1, K2, K3, K4]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -31,6 +31,7 @@ class EnvState:
     done: torch.Tensor  # (B,) bool
     steps: torch.Tensor  # (B,) int32
     iteration: torch.Tensor  # (B,) int32
+    motor: Any = None  # MotorState (batch-leading) when the motor-dynamics hook is enabled
 
 
 class Env:

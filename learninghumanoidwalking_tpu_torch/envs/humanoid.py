@@ -1,19 +1,20 @@
-"""Shared machinery for humanoid environments, without a motor model
-(counterpart of learninghumanoidwalking_tpu/envs/humanoid.py).
+"""Shared machinery for humanoid environments (counterpart of
+learninghumanoidwalking_tpu/envs/humanoid.py).
 
 The JAX env vmaps per-env pure functions around a batch-in-lanes physics
 call; here every step is written over the batch. Physics runs through
 ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernels K1 (flat floor),
-K2 (terrain boxes) or K3 (heightfield) for CUDA tensors, their plain
-PyTorch version for CPU tensors. No batch size routes the card back to the
-plain version.
+K2 (terrain boxes), K3 (heightfield) or K4 (flat floor with the learned
+motor model) for CUDA tensors, their plain PyTorch version for CPU tensors.
+No batch size routes the card back to the plain version.
 
 Ported: action smoothing and nominal-pose offsets, the PD substep loop,
-observation history and per-group observation noise, reset with settle
-substeps, per-env terrain from the task (``_terrain`` hook), dynamics
-randomization and perturbation wrenches (sampled from a ``Draws`` source),
-non-finite termination. Not ported yet (they raise): the learned motor
-model, PD-gain and back-EMF randomization.
+the learned motor-dynamics hook (``motor_dynamics``), observation history
+and per-group observation noise, reset with settle substeps, per-env
+terrain from the task (``_terrain`` hook), PD-gain and back-EMF
+randomization (``pdrand_k``, ``sim_bemf``), dynamics randomization and
+perturbation wrenches (all sampled from a ``Draws`` source), non-finite
+termination.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
 from learninghumanoidwalking_tpu_torch.ops.substep_kernel import pd_substeps_kernel
 from learninghumanoidwalking_tpu_torch.physics import engine, interface
 from learninghumanoidwalking_tpu_torch.physics.model import DynParams, default_dyn_params, tree_map
+from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
 from learninghumanoidwalking_tpu_torch.utils import maths
 from learninghumanoidwalking_tpu_torch.utils.config import load_json
 
@@ -65,17 +67,23 @@ class HumanoidEnv(Env):
         reuse = int(reuse_cfg) if reuse_cfg is not None else 5
         self.physics_reuse = reuse if (reuse > 0 and self.frame_skip % reuse == 0) else 1
 
-        unported = [
-            name
-            for name, on in (
-                ("motor_dynamics", bool(cfg.motor_dynamics and cfg.motor_dynamics.enable)),
-                ("pdrand_k", bool(cfg.pdrand_k)),
-                ("sim_bemf", bool(cfg.sim_bemf)),
-            )
-            if on
-        ]
-        if unported:
-            raise NotImplementedError(f"not ported to the torch package yet: {unported}")
+        # optional learned motor-dynamics hook: per-joint nets over a
+        # 25-substep (qdot, commanded torque) history, weights from an .npz
+        # or drawn from a generator seeded with motor_dynamics.seed
+        md_cfg = cfg.motor_dynamics
+        self.motor_enabled = bool(md_cfg and md_cfg.enable)
+        if self.motor_enabled:
+            if md_cfg.params_path:
+                self.motor_params = motor_mod.load_motor_params(str(md_cfg.params_path), m.nu, self.device)
+            else:
+                gen = torch.Generator()
+                gen.manual_seed(int(md_cfg.seed or 0))
+                self.motor_params = motor_mod.init_motor_params(gen, m.nu, device=self.device)
+        # optional actuator randomizations, every control step: PD gains
+        # scaled by U(1-k, 1+k) per env and joint; with probability 1/10 per
+        # env a back-EMF gain U(5, 40) per joint
+        self.pdrand_k = float(cfg.pdrand_k) if cfg.pdrand_k else 0.0
+        self.sim_bemf = bool(cfg.sim_bemf)
 
         self.root_idx = m.body_names.index(self.ROOT_BODY)
         self.head_idx = m.body_names.index(self.HEAD_BODY)
@@ -239,6 +247,7 @@ class HumanoidEnv(Env):
             done=torch.zeros((n,), dtype=torch.bool, device=dev),
             steps=torch.zeros((n,), dtype=torch.int32, device=dev),
             iteration=torch.as_tensor(iteration, dtype=torch.int32, device=dev).expand(n).clone(),
+            motor=motor_mod.init_motor_state(n, m.nu, dev) if self.motor_enabled else None,
         )
 
     def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
@@ -262,10 +271,14 @@ class HumanoidEnv(Env):
         launch, then task, reward, termination and observations."""
         full_target = self._pre_step(states, actions)
         terrain = self._terrain(states.task)
+        motor = (self.motor_params, states.motor) if self.motor_enabled else None
         physics = pd_substeps_kernel(
             self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt, terrain,
-            reuse_interval=self.physics_reuse,
+            reuse_interval=self.physics_reuse, motor=motor,
         )
+        if motor is not None:  # (PhysicsState, MotorState)
+            physics, new_motor = physics
+            states = dataclasses.replace(states, motor=new_motor)
         return self._post_step(states, physics, actions, full_target, draws)
 
     def _post_step(self, state: EnvState, physics, actions, full_target, draws) -> EnvState:
@@ -281,6 +294,16 @@ class HumanoidEnv(Env):
 
         dyn = state.dyn
         n, dev = actions.shape[0], actions.device
+        nu = self.model.nu
+        if self.pdrand_k > 0:
+            k = self.pdrand_k
+            kp = torch.as_tensor(self.kp, device=dev) * draws.uniform("pd.kp_scale", (n, nu), 1 - k, 1 + k, dev)
+            kd = torch.as_tensor(self.kd, device=dev) * draws.uniform("pd.kd_scale", (n, nu), 1 - k, 1 + k, dev)
+            dyn = dataclasses.replace(dyn, kp=kp, kd=kd)
+        if self.sim_bemf:
+            hit = draws.randint("bemf.event", (n,), 0, 10, dev) == 0
+            gain = draws.uniform("bemf.gain", (n, nu), 5.0, 40.0, dev)
+            dyn = dataclasses.replace(dyn, bemf_gain=torch.where(hit[:, None], gain, dyn.bemf_gain))
         if self.dynrand_interval > 0:
             hit = draws.randint("dyn.event", (n,), 0, self.dynrand_interval, dev) == 0
             new_dyn = self._sample_dynamics(draws, n)

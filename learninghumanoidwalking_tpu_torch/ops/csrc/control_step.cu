@@ -1,14 +1,16 @@
-// K1/K2/K3: control step — frame_skip PD + rigid-body physics substeps per
+// K1-K4: control step — frame_skip PD + rigid-body physics substeps per
 // env in ONE launch, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by make_control_step in
 // learninghumanoidwalking_tpu/ops/substep_kernel.py (its pl.pallas_call at
-// :1296), motor-free, in three builds of this one source:
+// :1296), in three libraries built from this one source:
 //   K1 flat floor (LHW_TERRAIN 0): 8 contact slots, the (z, x, y) frame;
 //   K2 terrain boxes and K3 heightfield (LHW_TERRAIN 1, a second library):
 //      16 slots, a per-slot kind table (flat / floor / hfield / box, the
 //      Pallas slot kinds of substep_kernel.py:176-210), per-env terrain
-//      inputs, tilted contact frames and the contact normals as output.
+//      inputs, tilted contact frames and the contact normals as output;
+//   K4 motor hook (LHW_MOTOR 1, a third library, flat floor): the learned
+//      motor dynamics of substep_kernel.py:1018-1106 (see "Motor" below).
 // It computes what that kernel and its plain twin
 // physics/batched.py::pd_substeps_batched compute; the plain PyTorch version
 // in this package (physics/batched.py) is the reference it is held to.
@@ -62,6 +64,26 @@
 // contact solve fast (the Woodbury/basis form, a warp per env, shared
 // memory) is later work.
 //
+// Motor (K4). Every substep's PD torque passes through the learned motor
+// hook of robots/motor.py before ctrl = tau / gear: per joint a rolling
+// 25-slot history of (joint velocity, commanded torque), pushed every
+// substep while count < 25 and then on even counts; once warm, a per-joint
+// MLP (50 -> 32 -> 32 -> 1, tanh hidden layers, linear output, plus a skip
+// weight times the newest pushed torque) gives the applied torque. The
+// per-env histories (joint-major rows n * 25 + slot, oldest first) and the
+// int32 substep count come in and go out as trailing-batch blocks. In the
+// thread they are a ring buffer, so a push writes one slot a joint and
+// moves nothing. The weights (32,664 floats, 130.7 KB at the default
+// widths: more than the 48 KB of static shared memory, and staging them in
+// dynamic shared memory would leave one 128-thread block an SM) stay in
+// global memory: every thread of a warp reads the same weight at the same
+// time, so the read-only path serves it as one broadcast. The net adds
+// about 64.6k flops per env-substep past warmup (12 joints x 2656 FMAs plus
+// the tanh), on top of the physics at R=1, which the reference pins for
+// motor steps (substep_kernel.py:1366-1368); it stays FMA-bound, and runs
+// one thread per env like K1 (the per-joint products on tensor cores are
+// later work). tanhf, not a fast-math tanh.
+//
 // NaN must propagate (the env layer terminates non-finite envs), so every
 // max/min/clamp below uses NaN-propagating helpers, never fmaxf/fminf.
 
@@ -70,6 +92,9 @@
 
 #ifndef LHW_TERRAIN
 #define LHW_TERRAIN 0
+#endif
+#ifndef LHW_MOTOR
+#define LHW_MOTOR 0
 #endif
 
 #define MAX_B 16   // bodies (incl. world)
@@ -87,6 +112,11 @@
 #endif
 #define MAX_F 2    // distinct foot bodies carrying contact slots
 #define MAX_R (3 * MAX_C)  // contact rows
+#if LHW_MOTOR
+#define MAX_H 25       // motor history slots (the reference's buffer length)
+#define MAX_HID 64     // motor MLP hidden width
+#define MAX_LAYERS 3   // motor MLP layers (hidden + output)
+#endif
 
 // ---- int table layout ----
 #define I_NB 0
@@ -348,6 +378,43 @@ __device__ __forceinline__ void inertia_apply(const float* in, const float* mv, 
 
 #define NINER 13  // compact inertia record: m, h(3), ibar(9)
 
+#if LHW_MOTOR
+// Applied torque of joint n from its histories qdh, cth (MAX_H slots each;
+// logical slot h, oldest first, at ring index (head + h) % MAX_H), through
+// its MLP. Weights mw: per layer l, w_l (nu, d_l, d_{l+1}) then b_l
+// (nu, d_{l+1}), row-major as robots/motor.py stacks them; then skip (nu).
+// dims: d_0 = 2 MAX_H, ..., d_nl = 1.
+__device__ float motor_net(const float* __restrict__ mw, int nu, int nl, const int* dims, int n, const float* qdh,
+                           const float* cth, int head) {
+  float x[2 * MAX_H > MAX_HID ? 2 * MAX_H : MAX_HID], y[MAX_HID];
+#pragma unroll 1
+  for (int h = 0; h < MAX_H; ++h) {
+    int r = head + h;
+    if (r >= MAX_H) r -= MAX_H;
+    x[h] = qdh[r];
+    x[MAX_H + h] = cth[r];
+  }
+  int off = 0;
+#pragma unroll 1
+  for (int l = 0; l < nl; ++l) {
+    const int din = dims[l], dout = dims[l + 1];
+    const float* w = mw + off + n * din * dout;
+    const float* bias = mw + off + nu * din * dout + n * dout;
+#pragma unroll 1
+    for (int o = 0; o < dout; ++o) {
+      float acc = __ldg(bias + o);
+#pragma unroll 1
+      for (int i = 0; i < din; ++i) acc += x[i] * __ldg(w + i * dout + o);
+      y[o] = (l < nl - 1) ? tanhf(acc) : acc;
+    }
+    for (int o = 0; o < dout; ++o) x[o] = y[o];
+    off += nu * din * dout + nu * dout;
+  }
+  const int newest = (head == 0) ? MAX_H - 1 : head - 1;
+  return __ldg(mw + off + n) * cth[newest] + x[0];
+}
+#endif
+
 #if LHW_TERRAIN
 // jnp.sign: 0 at 0 (copysignf would give +-1 and a corner at lx = 0 a normal
 // the reference does not give it)
@@ -400,6 +467,11 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
     const float* __restrict__ terrain_cos, const float* __restrict__ terrain_sin,
     const float* __restrict__ floor_z_in, const float* __restrict__ hfield,
     const float* __restrict__ hf_x0y0, const float* __restrict__ hf_cell,
+#endif
+#if LHW_MOTOR
+    const float* __restrict__ motor_w, int motor_layers, int motor_hid0, int motor_hid1,
+    const float* __restrict__ qd_hist_in, const float* __restrict__ ct_hist_in, const int* __restrict__ count_in,
+    float* __restrict__ qd_hist_out, float* __restrict__ ct_hist_out, int* __restrict__ count_out,
 #endif
     float* __restrict__ qpos_out, float* __restrict__ qvel_out, float* __restrict__ qacc_out,
     float* __restrict__ act_out, float* __restrict__ cforce_out, float* __restrict__ cdist_out,
@@ -465,10 +537,33 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
   }
   float cn[3 * MAX_C];  // contact normals of the last substep
 #endif
+#if LHW_MOTOR
+  // motor histories as ring buffers (joint n's slots at n * MAX_H), the
+  // ring index of the oldest slot, and the substep count
+  float qdh[MAX_U * MAX_H], cth[MAX_U * MAX_H];
+#pragma unroll 1
+  for (int r = 0; r < nu * MAX_H; ++r) {
+    qdh[r] = qd_hist_in[r * B + b];
+    cth[r] = ct_hist_in[r * B + b];
+  }
+  int m_head = 0;
+  int m_count = count_in[b];
+  int m_dims[MAX_LAYERS + 1];
+  m_dims[0] = 2 * MAX_H;
+  for (int l = 1; l < motor_layers; ++l) m_dims[l] = (l == 1) ? motor_hid0 : motor_hid1;
+  m_dims[motor_layers] = 1;
+#endif
 
 #pragma unroll 1
   for (int sub = 0; sub < frame_skip; ++sub) {
     const bool refresh = (sub % reuse) == 0;
+#if LHW_MOTOR
+    // warm: the command passes through; push: every substep while warm,
+    // then on even counts (the oldest slot is dropped, the newest written)
+    const bool m_warm = m_count < MAX_H;
+    const bool m_push = m_warm || (m_count % 2) == 0;
+    const int m_next = m_push ? ((m_head + 1 == MAX_H) ? 0 : m_head + 1) : m_head;
+#endif
 
     // ---- PD torque -> actuator force (ctrlrange clamp, gear) ----
 #pragma unroll 1
@@ -478,6 +573,13 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
       if (!settle) {
         float qa = q[si[I_ACTQ + a]], va = v[si[I_ACTD + a]];
         float tau = kp[a] * (tgt[a] - qa) - kd[a] * va - bemf[a] * va;
+#if LHW_MOTOR
+        if (m_push) {
+          qdh[a * MAX_H + m_head] = va;
+          cth[a * MAX_H + m_head] = tau;
+        }
+        if (!m_warm) tau = motor_net(motor_w, nu, motor_layers, m_dims, a, qdh + a * MAX_H, cth + a * MAX_H, m_next);
+#endif
         ctrl = tau / gear;
       }
       float lo = sf[F_CLO + a], hi = sf[F_CHI + a];
@@ -485,6 +587,12 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
       if (ctrl > hi) ctrl = hi;
       act[a] = gear * ctrl;
     }
+#if LHW_MOTOR
+    if (!settle) {  // settle substeps take no motor model
+      m_head = m_next;
+      ++m_count;
+    }
+#endif
 
     // ---- kinematics ----
     fk(sf, si, q, xpos, xquat, rmat);
@@ -876,6 +984,18 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
   for (int r = 0; r < 3 * nb; ++r) xpos_out[r * B + b] = xpos[r];
   for (int r = 0; r < 4 * nb; ++r) xquat_out[r * B + b] = xquat[r];
   for (int r = 0; r < 6 * nb; ++r) cvel_out[r * B + b] = cvel[r];
+#if LHW_MOTOR
+#pragma unroll 1
+  for (int n = 0; n < nu; ++n)
+#pragma unroll 1
+    for (int h = 0; h < MAX_H; ++h) {
+      int r = m_head + h;
+      if (r >= MAX_H) r -= MAX_H;
+      qd_hist_out[(n * MAX_H + h) * B + b] = qdh[n * MAX_H + r];
+      ct_hist_out[(n * MAX_H + h) * B + b] = cth[n * MAX_H + r];
+    }
+  count_out[b] = m_count;
+#endif
 }
 
 #if LHW_TERRAIN
@@ -883,16 +1003,21 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
 #else
 #define LHW_LAYOUT_TERRAIN(X)
 #endif
+#if LHW_MOTOR
+#define LHW_LAYOUT_MOTOR(X) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS)
+#else
+#define LHW_LAYOUT_MOTOR(X)
+#endif
 
 // Table layout for the Python side, which builds the tables from it and
 // keeps no copy: caps, table sizes, every offset and the dof-kind codes, as
-// (name, value) pairs.
+// (name, value) pairs (the motor build adds LHW_MOTOR and its caps).
 #define LHW_LAYOUT(X)                                                                          \
   X(LHW_TERRAIN) X(MAX_B) X(MAX_V) X(MAX_Q) X(MAX_U) X(MAX_C) X(MAX_T) X(MAX_HF) X(MAX_F)     \
   X(N_FTAB) X(N_ITAB)                                                                          \
   X(I_NB) X(I_NV) X(I_NQ) X(I_NU) X(I_NC) X(I_NFOOT) X(I_NT) X(I_PARENT) X(I_JTYPE) X(I_QADR) \
   X(I_DADR) X(I_DNUM) X(I_DOFBODY) X(I_DOFKIND) X(I_DOFK) X(I_ACTOFDOF) X(I_ACTQ) X(I_ACTD)   \
-  X(I_SLOTFOOT) X(I_FOOTBODY) X(I_ANC) LHW_LAYOUT_TERRAIN(X)                                   \
+  X(I_SLOTFOOT) X(I_FOOTBODY) X(I_ANC) LHW_LAYOUT_TERRAIN(X) LHW_LAYOUT_MOTOR(X)             \
   X(F_GRAV) X(F_IMPMIN) X(F_IMPDIFF) X(F_WIDTH) X(F_KREF) X(F_BREF) X(F_BPOS) X(F_BQUAT)      \
   X(F_JAXIS) X(F_JPOS) X(F_BINER) X(F_IQMAT) X(F_BMASS0) X(F_ARM) X(F_GEAR) X(F_CLO) X(F_CHI) \
   X(F_SGPOS) X(F_SGROT) X(F_SCORN) X(F_MU)                                                     \
@@ -914,12 +1039,23 @@ extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
   return count;
 }
 
+#if LHW_MOTOR
+#define LHW_MOTOR_ARGS                                                                                    \
+  const void *motor_w, int motor_layers, int motor_hid0, int motor_hid1, const void *qd_hist,             \
+      const void *ct_hist, const void *count, void *qd_hist_out, void *ct_hist_out, void *count_out,
+#else
+#define LHW_MOTOR_ARGS
+#endif
+
 // Launch on the caller's stream; returns cudaGetLastError() (0 = launched).
-// Both builds take the terrain arguments; the K1 build ignores them (its
-// kernel is compiled without them, so K1 keeps its code). In the terrain
-// build floor_z is required, the box blocks when the model has terrain
-// boxes and the heightfield blocks (hf_h, hf_w >= 2) when it has heightfield
-// slots.
+// Every build takes the terrain arguments; the K1 and motor builds ignore
+// them (their kernels are compiled without them, so K1 keeps its code). In
+// the terrain build floor_z is required, the box blocks when the model has
+// terrain boxes and the heightfield blocks (hf_h, hf_w >= 2) when it has
+// heightfield slots. The motor build alone takes the motor arguments
+// (before the stream): the stacked weights, the layer count and the two
+// hidden widths, the histories (nu * MAX_H, B) and the int32 count (1, B)
+// in and out.
 extern "C" int lhw_control_step(
     int batch, int frame_skip, int reuse, int settle, float dt,
     const void* ftab, const void* itab,
@@ -930,7 +1066,7 @@ extern "C" int lhw_control_step(
     const void* terrain_sin, const void* floor_z, const void* hfield, const void* hf_x0y0,
     const void* hf_cell,
     void* qpos_out, void* qvel_out, void* qacc_out, void* act_out, void* cforce, void* cdist,
-    void* cmask, void* cpos, void* cnormal, void* xpos, void* xquat, void* cvel, void* stream) {
+    void* cmask, void* cpos, void* cnormal, void* xpos, void* xquat, void* cvel, LHW_MOTOR_ARGS void* stream) {
   if (batch <= 0) return 0;
   dim3 block(THREADS);
   dim3 grid((batch + THREADS - 1) / THREADS);
@@ -943,6 +1079,10 @@ extern "C" int lhw_control_step(
       hf_h, hf_w, (const float*)terrain_pos, (const float*)terrain_size, (const float*)terrain_cos,
       (const float*)terrain_sin, (const float*)floor_z, (const float*)hfield, (const float*)hf_x0y0,
       (const float*)hf_cell,
+#endif
+#if LHW_MOTOR
+      (const float*)motor_w, motor_layers, motor_hid0, motor_hid1, (const float*)qd_hist, (const float*)ct_hist,
+      (const int*)count, (float*)qd_hist_out, (float*)ct_hist_out, (int*)count_out,
 #endif
       (float*)qpos_out, (float*)qvel_out, (float*)qacc_out, (float*)act_out, (float*)cforce,
       (float*)cdist, (float*)cmask, (float*)cpos, (float*)cnormal, (float*)xpos, (float*)xquat,

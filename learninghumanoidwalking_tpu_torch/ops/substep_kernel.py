@@ -1,16 +1,17 @@
-"""Kernels K1 (flat floor), K2 (terrain boxes) and K3 (heightfield): the
-wrapper over csrc/control_step.cu.
+"""Kernels K1 (flat floor), K2 (terrain boxes), K3 (heightfield) and K4
+(learned motor hook, flat floor): the wrapper over csrc/control_step.cu.
 
 Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
-substep_kernel.py (``make_control_step``, its ``pl.pallas_call``) on the
-motor-free paths. One launch runs all ``frame_skip`` PD + physics substeps
-of every env, one CUDA thread per env. The source builds into two
-libraries: K1 with the flat-floor caps, and the terrain build (16 contact
-slots, a slot-kind table, per-env terrain inputs) that K2 and K3 share.
+substep_kernel.py (``make_control_step``, its ``pl.pallas_call``). One
+launch runs all ``frame_skip`` PD + physics substeps of every env, one
+CUDA thread per env. The source builds into three libraries: K1 with the
+flat-floor caps; the terrain build (16 contact slots, a slot-kind table,
+per-env terrain inputs) that K2 and K3 share; and the motor build (K1 plus
+the motor hook, its histories and count in and out).
 
 ``pd_substeps_kernel`` has the signature of the plain version,
 physics/batched.py::pd_substeps_batched, and returns the same
-PhysicsState:
+PhysicsState (with a motor: PhysicsState and MotorState):
 
 * tensors on the CPU take the plain version;
 * tensors on a CUDA device launch the kernel, or raise. Nothing falls back.
@@ -19,7 +20,8 @@ The model reaches the kernel as runtime tables in device memory (topology,
 offsets, inertias, actuators, contact slots and their kinds), built once
 per model and device and cached by the model's CONTENT, in the table layout
 that the built library reports (caps and offsets live only in
-csrc/control_step.cu).
+csrc/control_step.cu). Motor weights are uploaded the same way, once per
+content and device.
 """
 
 from __future__ import annotations
@@ -37,10 +39,17 @@ from learninghumanoidwalking_tpu_torch.physics.batched import PROJ_REFINE_ITERS,
 from learninghumanoidwalking_tpu_torch.physics.engine import Terrain, _tables
 from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, Contact, DynParams, Model, PhysicsState
 from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
+from learninghumanoidwalking_tpu_torch.robots.motor import HIST_LEN, MotorState
 
 SOURCES = ["control_step.cu"]
 # build name and preprocessor defines of each library; K2 and K3 share "terrain"
-LIBRARIES = {"flat": ("lhw_control_step", ()), "terrain": ("lhw_control_step_terrain", ("-DLHW_TERRAIN=1",))}
+LIBRARIES = {
+    "flat": ("lhw_control_step", ()),
+    "terrain": ("lhw_control_step_terrain", ("-DLHW_TERRAIN=1",)),
+    "motor": ("lhw_control_step_motor", ("-DLHW_MOTOR=1",)),
+}
+# the library each kernel runs from
+LIBRARY_OF = {"K1": "flat", "K2": "terrain", "K3": "terrain", "K4": "motor"}
 
 
 class LaunchCounter:
@@ -54,26 +63,53 @@ class LaunchCounter:
         self.launches = 0
 
 
-counters = {"K1": LaunchCounter(), "K2": LaunchCounter(), "K3": LaunchCounter()}
+counters = {"K1": LaunchCounter(), "K2": LaunchCounter(), "K3": LaunchCounter(), "K4": LaunchCounter()}
 
 
-def variant(model: Model, hfield: bool) -> str:
+def variant(model: Model, hfield: bool, motor: bool = False) -> str:
     """Which kernel runs ``model``: K2 with terrain boxes, K3 with a
-    heightfield and no boxes, else K1."""
+    heightfield and no boxes, K4 with a motor model on the flat floor,
+    else K1. (A motor model on terrain has no build: check_model refuses
+    it.)"""
     if model.nterrain > 0:
         return "K2"
-    return "K3" if hfield else "K1"
+    if hfield:
+        return "K3"
+    return "K4" if motor else "K1"
 
 
-def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, motor=None) -> None:
+def motor_dims(params: dict) -> list[int]:
+    """Layer widths of stacked motor-net params: [d_in, hidden..., d_out]."""
+    n_layers = int(params["n_layers"])
+    return [int(params["w0"].shape[1])] + [int(params[f"w{li}"].shape[2]) for li in range(n_layers)]
+
+
+def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, motor: dict | None = None) -> None:
     """Raise unless the library of table layout ``lay`` runs ``model`` (with
-    a heightfield of ``hfield_shape`` (H, W) if given): within its caps, on
-    terrain only in the terrain build, and without a motor model."""
+    a heightfield of ``hfield_shape`` (H, W) if given, and the motor-net
+    params ``motor`` if given): within its caps, on terrain only in the
+    terrain build, with a motor model only in the motor build, on the flat
+    floor (no terrain + motor build exists)."""
     fb = {model.geom_body[g] for g in model.foot_geoms}
     problems = []
+    on_terrain = bool(model.nterrain) or hfield_shape is not None
     if motor is not None:
-        problems.append("motor models need kernel K4 (not ported)")
-    if (model.nterrain or hfield_shape is not None) and not lay["LHW_TERRAIN"]:
+        if on_terrain:
+            problems.append("a motor model on terrain needs a terrain + motor build of kernel K4, which is not built")
+        if not lay.get("LHW_MOTOR"):
+            problems.append("motor models need the motor build (K4)")
+        elif not on_terrain:
+            dims, nu = motor_dims(motor), model.nu
+            shapes_ok = all(
+                tuple(motor[f"w{li}"].shape) == (nu, dims[li], dims[li + 1])
+                and tuple(motor[f"b{li}"].shape) == (nu, dims[li + 1])
+                for li in range(len(dims) - 1)
+            ) and tuple(motor["skip"].shape) == (nu,)
+            if not shapes_ok or dims[0] != 2 * lay["MAX_H"] or dims[-1] != 1:
+                problems.append(f"motor nets {dims} do not take 2 x {lay['MAX_H']} history inputs to 1 output for {nu} joints")
+            if len(dims) - 1 > lay["MAX_LAYERS"] or max(dims[1:-1], default=0) > lay["MAX_HID"]:
+                problems.append(f"motor nets {dims} exceed {lay['MAX_LAYERS']} layers of width {lay['MAX_HID']}")
+    if on_terrain and not lay["LHW_TERRAIN"]:
         problems.append("terrain and heightfield models need the terrain build (K2, K3)")
     if model.nterrain > lay["MAX_T"]:
         problems.append(f"{model.nterrain} terrain boxes exceed the cap {lay['MAX_T']}")
@@ -190,6 +226,15 @@ def device_tables(model: Model, device: torch.device, lay: dict, hfield_shape=No
     return _DEVICE_TABLES[key]
 
 
+def motor_weights(params: dict, device: torch.device) -> torch.Tensor:
+    """The stacked motor-net params as one contiguous float32 block on
+    ``device``, in the kernel's order: per layer w then b, then skip. Packed
+    on the device at every launch (130.7 KB for JVRC's 50-32-32-1 nets), so
+    it needs no cache and no host synchronization."""
+    tensors = [params[f"{k}{li}"] for li in range(int(params["n_layers"])) for k in ("w", "b")] + [params["skip"]]
+    return torch.cat([t.to(device=device, dtype=torch.float32).reshape(-1) for t in tensors])
+
+
 _LIBS: dict = {}
 
 
@@ -206,17 +251,21 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
         n = lib.lhw_control_step_layout(names, values, cap)
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
+        lay = {names[k].decode(): values[k] for k in range(n)}
+        # the motor build takes the motor arguments before the stream
+        motor_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
         lib.lhw_control_step.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 21
+            [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
+            + motor_args + [ctypes.c_void_p]
         )
         lib.lhw_control_step.restype = ctypes.c_int
-        _LIBS[build_name] = (lib, {names[k].decode(): values[k] for k in range(n)})
+        _LIBS[build_name] = (lib, lay)
     return _LIBS[build_name]
 
 
 def build_all() -> dict:
-    """Build both libraries at once (one nvcc each, started together) and
-    load them; {build name: (nvcc seconds of this call, library path)}."""
+    """Build the three libraries at once (one nvcc each, started together)
+    and load them; {build name: (nvcc seconds of this call, library path)}."""
     jobs = {name: (lib, SOURCES, defines) for name, (lib, defines) in LIBRARIES.items()}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(build.build_library, *args) for name, args in jobs.items()}
@@ -265,20 +314,37 @@ def terrain_blocks(terrain: Terrain | None) -> dict:
     return out
 
 
+def motor_blocks(params: dict, mstate: MotorState, device: torch.device) -> dict:
+    """The motor inputs of K4: the weights (motor_weights), the layer
+    count and hidden widths, and the batch-leading MotorState's histories
+    (B, H, nu) as joint-major trailing-batch (nu * H, B) blocks, row
+    n * H + slot, oldest first; the count as int32 (1, B)."""
+    dims = motor_dims(params)
+    hidden = (dims[1:-1] + [0, 0])[:2]
+    joint_major = lambda h: h.permute(2, 1, 0).reshape(-1, h.shape[0]).contiguous()
+    return dict(
+        weights=motor_weights(params, device), layers=len(dims) - 1, hid0=hidden[0], hid1=hidden[1],
+        qd_hist=joint_major(mstate.qdot_hist), ct_hist=joint_major(mstate.ctau_hist),
+        count=mstate.count.to(torch.int32).reshape(1, -1).contiguous(),
+    )
+
+
 def control_step_launch(
     model: Model, inputs: dict, frame_skip: int, sim_dt: float, settle: bool, reuse: int,
-    terrain: dict | None = None, hfield_shape: tuple | None = None,
+    terrain: dict | None = None, hfield_shape: tuple | None = None, motor: dict | None = None,
 ) -> dict:
-    """Launch K1, K2 or K3 on trailing-batch (rows, B) float32 CUDA tensors
-    (``terrain``: the blocks of terrain_blocks, with ``hfield_shape`` (H, W)
-    where there is a heightfield); returns the 12 outputs as (rows, B)
-    tensors. Launches on the current stream and does not synchronize."""
+    """Launch K1, K2, K3 or K4 on trailing-batch (rows, B) float32 CUDA
+    tensors (``terrain``: the blocks of terrain_blocks, with ``hfield_shape``
+    (H, W) where there is a heightfield; ``motor``: the blocks of
+    motor_blocks); returns the 12 outputs as (rows, B) tensors, with a motor
+    also qd_hist, ct_hist (nu * H, B) and count (1, B) int32. Launches on
+    the current stream and does not synchronize."""
     qpos = inputs["qpos"]
     device = qpos.device
     if device.type != "cuda":
         raise ValueError(f"control_step_launch takes CUDA tensors, got {device}")
     batch = qpos.shape[1]
-    name = variant(model, hfield_shape is not None)
+    name = variant(model, hfield_shape is not None, motor is not None)
     terrain = terrain or dict.fromkeys(TERRAIN_KEYS)
     nt, hw = model.nterrain, (hfield_shape[0] * hfield_shape[1] if hfield_shape else 0)
     rows = dict(
@@ -287,13 +353,30 @@ def control_step_launch(
         xfrc=6 * model.nbody, terrain_pos=3 * nt, terrain_size=3 * nt, terrain_cos=nt, terrain_sin=nt,
         floor_z=1, hfield=hw, hf_x0y0=2, hf_cell=2,
     )
-    needed = {"K1": (), "K2": TERRAIN_KEYS[:5], "K3": ("floor_z", "hfield", "hf_x0y0", "hf_cell")}[name]
+    needed = {"K1": (), "K2": TERRAIN_KEYS[:5], "K3": ("floor_z", "hfield", "hf_x0y0", "hf_cell"), "K4": ()}[name]
     missing = [k for k in needed if terrain.get(k) is None]
     if missing:
         raise ValueError(f"{name} needs terrain inputs {missing}")
     _check_inputs({**inputs, **terrain}, rows, batch, device)
-    lib, lay = _library("flat" if name == "K1" else "terrain")
+    lib, lay = _library(LIBRARY_OF[name])
     ftab, itab = device_tables(model, device, lay, hfield_shape)
+    motor_in, motor_out = [], {}
+    if motor is not None:
+        hrows = model.nu * lay["MAX_H"]
+        _check_inputs(dict(qd_hist=motor["qd_hist"], ct_hist=motor["ct_hist"]), dict(qd_hist=hrows, ct_hist=hrows), batch, device)
+        count, weights = motor["count"], motor["weights"]
+        if count.device != device or count.dtype != torch.int32 or tuple(count.shape) != (1, batch) or not count.is_contiguous():
+            raise ValueError(f"count: expected a contiguous int32 (1, {batch}) tensor on {device}")
+        if weights.device != device or weights.dtype != torch.float32 or not weights.is_contiguous():
+            raise ValueError(f"motor weights: expected a contiguous float32 tensor on {device}")
+        motor_out = dict(
+            qd_hist=torch.empty((hrows, batch), dtype=torch.float32, device=device),
+            ct_hist=torch.empty((hrows, batch), dtype=torch.float32, device=device),
+            count=torch.empty((1, batch), dtype=torch.int32, device=device),
+        )
+        motor_in = [weights.data_ptr(), motor["layers"], motor["hid0"], motor["hid1"],
+                    motor["qd_hist"].data_ptr(), motor["ct_hist"].data_ptr(), count.data_ptr(),
+                    *[x.data_ptr() for x in motor_out.values()]]
     nc = model.ncon
     out_rows = dict(
         qpos=model.nq, qvel=model.nv, qacc=model.nv, act_torque=model.nu, cforce=3 * nc, cdist=nc,
@@ -312,20 +395,21 @@ def control_step_launch(
             *[inputs[k].data_ptr() for k in order_in],
             hh, ww, *[ptr(terrain[k]) for k in TERRAIN_KEYS],
             *[outs[k].data_ptr() for k in out_rows],
+            *motor_in,
             stream,
         )
     if err != 0:
         raise RuntimeError(f"control-step kernel {name} launch failed: cudaError {err}")
     counters[name].launches += 1
-    return outs
+    return {**outs, **motor_out}
 
 
-def kernel_reuse(terrain: Terrain | None, reuse_interval: int) -> int:
+def kernel_reuse(terrain: Terrain | None, reuse_interval: int, motor: bool = False) -> int:
     """The factorization-reuse interval R a step runs at: as asked on the
-    flat floor (K1), 1 on terrain boxes or a heightfield (K2, K3), as the
-    reference pins it (learninghumanoidwalking_tpu/ops/substep_kernel.py:
-    1360-1364)."""
-    return reuse_interval if terrain is None else 1
+    flat floor without a motor model (K1), 1 on terrain boxes or a
+    heightfield (K2, K3) and with a motor model (K4), as the reference pins
+    them (learninghumanoidwalking_tpu/ops/substep_kernel.py:1360-1368)."""
+    return reuse_interval if terrain is None and not motor else 1
 
 
 def pd_substeps_kernel(
@@ -338,24 +422,28 @@ def pd_substeps_kernel(
     terrain: Terrain | None = None,
     settle: bool = False,
     reuse_interval: int = 1,
-) -> PhysicsState:
-    """Drop-in for physics/batched.py::pd_substeps_batched through K1, K2 or
-    K3, at the reuse interval of kernel_reuse on both paths.
+    motor=None,
+):
+    """Drop-in for physics/batched.py::pd_substeps_batched through K1, K2,
+    K3 or (``motor``: a (motor params, MotorState) pair, returning
+    (PhysicsState, MotorState)) K4, at the reuse interval of kernel_reuse on
+    both paths.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     device = physics.qpos.device
     hfield_shape = tuple(terrain.hfield.shape[1:]) if terrain is not None and terrain.hfield is not None else None
-    name = variant(model, hfield_shape is not None)
-    if (name == "K2") != (terrain is not None and terrain.pos.shape[1] > 0) or (name == "K1" and terrain is not None):
+    name = variant(model, hfield_shape is not None, motor is not None)
+    if (name == "K2") != (terrain is not None and terrain.pos.shape[1] > 0) or (name in ("K1", "K4") and terrain is not None):
         raise ValueError(f"terrain does not fit the model ({model.nterrain} terrain boxes, heightfield {hfield_shape})")
-    reuse_interval = kernel_reuse(terrain, reuse_interval)
+    reuse_interval = kernel_reuse(terrain, reuse_interval, motor is not None)
     if device.type == "cpu":
         return pd_substeps_batched(
-            model, params, physics, target, frame_skip, sim_dt, terrain, settle=settle, reuse_interval=reuse_interval
+            model, params, physics, target, frame_skip, sim_dt, terrain, settle=settle, reuse_interval=reuse_interval,
+            motor=motor,
         )
     if device.type != "cuda":
         raise ValueError(f"pd_substeps_kernel: unsupported device {device}")
-    check_model(model, _library("flat" if name == "K1" else "terrain")[1], hfield_shape)
+    check_model(model, _library(LIBRARY_OF[name])[1], hfield_shape, None if motor is None else motor[0])
     batch = physics.qpos.shape[0]
     inputs = dict(
         qpos=_trailing(physics.qpos),
@@ -371,7 +459,8 @@ def pd_substeps_kernel(
         xfrc=_trailing(params.xfrc),
     )
     out = control_step_launch(
-        model, inputs, frame_skip, sim_dt, settle, reuse_interval, terrain_blocks(terrain), hfield_shape
+        model, inputs, frame_skip, sim_dt, settle, reuse_interval, terrain_blocks(terrain), hfield_shape,
+        None if motor is None else motor_blocks(motor[0], motor[1], device),
     )
     nc, nb = model.ncon, model.nbody
     lead = lambda x, *shape: x.t().reshape(batch, *shape)
@@ -388,7 +477,7 @@ def pd_substeps_kernel(
         force=lead(out["cforce"], nc, 3),
         mask=lead(out["cmask"], nc),
     )
-    return PhysicsState(
+    state = PhysicsState(
         qpos=lead(out["qpos"], model.nq),
         qvel=lead(out["qvel"], model.nv),
         qacc=lead(out["qacc"], model.nv),
@@ -399,6 +488,11 @@ def pd_substeps_kernel(
         contact=contact,
         time=physics.time + frame_skip * sim_dt,
     )
+    if motor is None:
+        return state
+    # joint-major (nu * H, B) -> batch-leading (B, H, nu), as views
+    hist = lambda x: x.reshape(model.nu, HIST_LEN, batch).permute(2, 1, 0)
+    return state, MotorState(qdot_hist=hist(out["qd_hist"]), ctau_hist=hist(out["ct_hist"]), count=out["count"].reshape(batch))
 
 
 # ---------------------------------------------------------------------------
@@ -406,10 +500,25 @@ def pd_substeps_kernel(
 # ---------------------------------------------------------------------------
 
 
-def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False) -> float:
+def motor_flops_per_net(params: dict) -> float:
+    """Float operations of one env-substep's motor nets (all joints), as
+    K4 runs them once the history is warm: per joint and layer d_in x d_out
+    FMAs (2 each) and d_out bias adds, a tanh (8, as sin and cos) per hidden
+    unit, and the skip term (a multiply and an add). The default 50 -> 32
+    -> 32 -> 1 nets: 2656 FMAs, 65 bias adds, 64 tanh and 2 per joint, 70.7k
+    for jvrc's 12 joints."""
+    dims, nu = motor_dims(params), int(params["skip"].shape[0])
+    fma = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    return float(nu * (2 * fma + sum(dims[1:]) + 8 * sum(dims[1:-1]) + 2))
+
+
+def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False, motor: dict | None = None) -> float:
     """Float operations that one env-substep needs, the refresh work amortized
     over the reuse group R (an FMA counts 2; a divide or sqrt 4; sin, cos 8),
-    for the flat floor, the terrain boxes, or (``hfield``) the heightfield.
+    for the flat floor, the terrain boxes, or (``hfield``) the heightfield;
+    with the motor-net params ``motor``, plus motor_flops_per_net (an
+    env-substep past the history's warmup: a launch's bound counts the net
+    only where it runs).
 
     This is the least work of the step, not what the kernels execute: the
     contact solve is counted in the Woodbury form of the Pallas kernel
@@ -475,13 +584,17 @@ def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False) -> flo
     per += iters * (apply_ainv + nc * 20) + (iters - 1) * (apply_a + 2 * n3)
     per += 6 * n3 + nk * 2 * nv + 2 * fwd(nv) + nv  # J^T f through the basis, constraint qacc
     per += nv * 4 + 60  # semi-implicit Euler, quaternion integration
+    if motor is not None:
+        per += motor_flops_per_net(motor)
     return float(per)
 
 
-def bytes_per_launch(model: Model, batch: int, hfield_shape: tuple | None = None) -> int:
+def bytes_per_launch(model: Model, batch: int, hfield_shape: tuple | None = None, motor: dict | None = None) -> int:
     """Bytes the launch must move: each input read once, each output written
     once (terrain inputs: box pos, size, cos, sin, floor_z; heightfield
-    nodes, origin, spacing)."""
+    nodes, origin, spacing; with the motor-net params ``motor``, the two
+    histories (nu x 25 each) and the count in and out per env, and the
+    weights once)."""
     nb, nv, nq, nu, nc = model.nbody, model.nv, model.nq, model.nu, model.ncon
     rows_in = nq + nv + 4 * nu + 2 * nv + nb + 3 * nb + 6 * nb
     if model.nterrain or hfield_shape:
@@ -489,4 +602,8 @@ def bytes_per_launch(model: Model, batch: int, hfield_shape: tuple | None = None
     if hfield_shape:
         rows_in += hfield_shape[0] * hfield_shape[1] + 4
     rows_out = nq + 2 * nv + nu + 3 * nc + 2 * nc + 6 * nc + 3 * nb + 4 * nb + 6 * nb
-    return 4 * batch * (rows_in + rows_out)
+    motor_bytes = 0
+    if motor is not None:
+        weights = sum(int(motor[f"{k}{li}"].numel()) for li in range(int(motor["n_layers"])) for k in ("w", "b"))
+        motor_bytes = 4 * batch * 2 * (2 * nu * HIST_LEN + 1) + 4 * (weights + nu)
+    return 4 * batch * (rows_in + rows_out) + motor_bytes

@@ -1,5 +1,6 @@
-"""Batched rigid-body engine, flat floor, no motor model: the plain PyTorch
-version of kernel K1 (counterpart of learninghumanoidwalking_tpu/physics/batched.py).
+"""Batched rigid-body engine: the plain PyTorch version of kernels K1-K4
+(counterpart of learninghumanoidwalking_tpu/physics/batched.py): flat
+floor, terrain boxes, heightfield, and the learned motor hook.
 
 The JAX module keeps the batch as the TRAILING axis for the TPU's lane
 layout; here the batch LEADS, which is the natural PyTorch layout, and every
@@ -26,6 +27,7 @@ from learninghumanoidwalking_tpu_torch.physics.engine import _tables
 from learninghumanoidwalking_tpu_torch.physics.linalg_small import cho_solve_outer, cholesky_outer
 from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, Contact, DynParams, Model, PhysicsState
 from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
+from learninghumanoidwalking_tpu_torch.robots.motor import MotorState, motor_substep_torque_b
 from learninghumanoidwalking_tpu_torch.utils import maths
 from learninghumanoidwalking_tpu_torch.utils.maths import cross
 
@@ -378,7 +380,8 @@ def pd_substeps_batched(
     terrain: eng.Terrain | None = None,
     settle: bool = False,
     reuse_interval: int = 1,
-) -> PhysicsState:
+    motor=None,
+):
     """frame_skip PD + physics substeps over a whole env batch.
 
     ``terrain`` (batch-leading) is required when the model has terrain
@@ -386,12 +389,21 @@ def pd_substeps_batched(
     applies zero torque (reset settling). Substep 0 of every
     group of ``reuse_interval`` substeps refreshes the factorization; the
     rest reuse it. qacc, act_torque and the contact fields come from the
-    last substep; FK caches are rebuilt at the final state."""
+    last substep; FK caches are rebuilt at the final state.
+
+    ``motor``: an optional (motor params, batch-leading MotorState) pair
+    (robots/motor.py). Every substep's PD torque then passes through the
+    learned motor hook before ``ctrl = tau / gear``, and the return value is
+    (PhysicsState, MotorState). It runs at the R it is given (the kernel's
+    wrapper pins 1 for motor steps, as the reference's kernel does)."""
     qpos, qvel = physics.qpos, physics.qvel
     reuse = valid_reuse(frame_skip, reuse_interval)
     gear = model.actuator_gear
     act_q = list(model.actuator_qpos)
     act_d = list(model.actuator_dof)
+    if motor is not None:
+        motor_params, mstate = motor
+        qd_h, ct_h, count = mstate.qdot_hist, mstate.ctau_hist, mstate.count
     cache = None
     for sub in range(frame_skip):
         if settle:
@@ -400,6 +412,8 @@ def pd_substeps_batched(
             q = qpos[:, act_q]
             v = qvel[:, act_d]
             tau = params.kp * (target - q) - params.kd * v - params.bemf_gain * v
+            if motor is not None:
+                tau, qd_h, ct_h, count = motor_substep_torque_b(motor_params, qd_h, ct_h, count, v, tau)
             ctrl = tau / gear
         out = step_b(model, params, qpos, qvel, ctrl, sim_dt, terrain, cache=None if sub % reuse == 0 else cache)
         qpos, qvel, qacc, act_force, cpos, dist, mask, force, cframe, cache = out
@@ -416,7 +430,7 @@ def pd_substeps_batched(
         force=force,
         mask=mask,
     )
-    return PhysicsState(
+    out = PhysicsState(
         qpos=qpos,
         qvel=qvel,
         qacc=qacc,
@@ -427,3 +441,6 @@ def pd_substeps_batched(
         contact=contact,
         time=physics.time + frame_skip * sim_dt,
     )
+    if motor is None:
+        return out
+    return out, MotorState(qdot_hist=qd_h, ctau_hist=ct_h, count=count)

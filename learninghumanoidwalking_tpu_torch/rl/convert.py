@@ -1,5 +1,5 @@
-"""Carry the JAX package's actor / critic parameters and RunningNorm
-statistics into the port.
+"""Carry the JAX package's actor / critic parameters, RunningNorm
+statistics and motor-net parameters into the port.
 
 The JAX params arrive as numpy arrays flattened from flax's nested dict,
 keyed by "/"-joined paths such as ``params/MLPTrunk_0/Dense_1/kernel``.
@@ -67,3 +67,13 @@ def running_norm(mean, var, count, device="cpu") -> RunningNorm:
     """RunningNorm from the JAX package's (mean, var, count) statistics."""
     as_t = lambda x: torch.as_tensor(np.array(x, np.float32), device=device)
     return RunningNorm(mean=as_t(mean), var=as_t(var), count=as_t(count))
+
+
+def motor_params(np_params: dict, device="cpu") -> dict:
+    """The JAX package's motor-net params (robots/motor.py init_motor_params
+    or an .npz: w{l} (nu, d_in, d_out), b{l} (nu, d_out), skip (nu,),
+    n_layers), as numpy arrays, -> the port's robots/motor.py params. The
+    layouts are the same, so nothing is transposed."""
+    out = {k: torch.as_tensor(np.array(v, np.float32), device=device) for k, v in np_params.items() if k != "n_layers"}
+    out["n_layers"] = int(np_params["n_layers"])
+    return out

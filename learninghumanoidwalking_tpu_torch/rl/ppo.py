@@ -5,7 +5,8 @@ the persistent env batch with a rotated per-iteration reset pool and a
 carried V(s_t), GAE, batch-normalized advantages, then ``epochs`` passes of
 minibatched updates (clipped surrogate, value MSE, entropy bonus, mirror
 loss), each network with its own Adam after global-norm clipping and a
-skip on non-finite gradients. The JAX ``scan``s are Python loops; the
+skip on non-finite gradients (optax's apply_if_finite, 100 consecutive
+skips at most). The JAX ``scan``s are Python loops; the
 trainer state lives on ``device``.
 
 Not ported yet: recurrent policies, imitation, eval rollouts, checkpoints,
@@ -26,6 +27,10 @@ from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
 from learninghumanoidwalking_tpu_torch.rl.mirror import obs_symmetry_matrix, symmetry_matrix
 from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm, init_norm, update_norm
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
+
+# consecutive non-finite steps Adam skips before it applies one all the same
+# (the JAX trainer's apply_if_finite, learninghumanoidwalking_tpu/rl/ppo.py:171)
+MAX_CONSECUTIVE_ERRORS = 100
 
 
 @dataclasses.dataclass
@@ -67,9 +72,16 @@ class PPOConfig:
 
 class Adam:
     """Adam over a parameter list, preceded by global-norm clipping and
-    skipped (state untouched) when the gradients are not finite — optax's
-    apply_if_finite(chain(clip_by_global_norm, adam)) as the JAX trainer
-    builds it. Written out so the skip needs no host synchronization."""
+    skipped (state untouched) when a gradient is not finite — optax's
+    apply_if_finite(chain(clip_by_global_norm, adam), MAX_CONSECUTIVE_ERRORS)
+    as the JAX trainer builds it. Written out so the skip needs no host
+    synchronization.
+
+    As optax does: every gradient is tested for finiteness (not their norm,
+    which may overflow to inf while every entry is finite: the clip then
+    gives zero gradients, and the moments and ``count`` still advance);
+    ``notfinite_count`` counts consecutive non-finite steps, and once it
+    exceeds ``MAX_CONSECUTIVE_ERRORS`` the step is applied all the same."""
 
     def __init__(self, params: list, lr: float, eps: float, max_grad_norm: float, b1=0.9, b2=0.999):
         self.params = params
@@ -77,23 +89,26 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = torch.zeros((), device=params[0].device)
+        self.notfinite_count = torch.zeros((), dtype=torch.int32, device=params[0].device)
 
     @torch.no_grad()
     def step(self, grads: list) -> None:
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)
+        apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        finite = torch.isfinite(g_norm)
         trigger = g_norm < self.max_norm
         grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm) for g in grads]
-        count = torch.where(finite, self.count + 1, self.count)
+        count = torch.where(apply, self.count + 1, self.count)
         bc1 = 1 - self.b1**count
         bc2 = 1 - self.b2**count
         for i, (p, g) in enumerate(zip(self.params, grads)):
             mu = self.b1 * self.mu[i] + (1 - self.b1) * g
             nu = self.b2 * self.nu[i] + (1 - self.b2) * (g * g)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.copy_(torch.where(finite, p - self.lr * update, p))
-            self.mu[i] = torch.where(finite, mu, self.mu[i])
-            self.nu[i] = torch.where(finite, nu, self.nu[i])
+            p.copy_(torch.where(apply, p - self.lr * update, p))
+            self.mu[i] = torch.where(apply, mu, self.mu[i])
+            self.nu[i] = torch.where(apply, nu, self.nu[i])
         self.count = count
 
 

@@ -479,3 +479,88 @@ def test_stair_curriculum_follows_reset_iteration():
         z = ts.task.sequence[:, :19, 2].numpy()
         np.testing.assert_allclose(np.diff(z, axis=1).max(1), h, atol=1e-6)
         assert np.all(tenv._terrain(ts.task).floor_z.numpy() == -2.0)
+
+
+# ---------------------------------------------------------------------------
+# jvrc_walk with the learned motor model, PD-gain and back-EMF randomization
+# ---------------------------------------------------------------------------
+
+
+def _actuator_draws(keys, k, nu):
+    """Draws of the JAX _post_step's pdrand_k and sim_bemf events per env key."""
+
+    def one(key):
+        k_ev = jax.random.split(key, 6)[4]
+        _, _, ev3, ev4 = jax.random.split(k_ev, 4)
+        kb1, kb2 = jax.random.split(ev3)
+        return {
+            "pd.kp_scale": jax.random.uniform(ev3, (nu,), minval=1 - k, maxval=1 + k),
+            "pd.kd_scale": jax.random.uniform(ev4, (nu,), minval=1 - k, maxval=1 + k),
+            "bemf.event": jax.random.randint(kb1, (), 0, 10),
+            "bemf.gain": jax.random.uniform(kb2, (nu,), minval=5.0, maxval=40.0),
+        }
+
+    return _np(jax.vmap(one)(keys))
+
+
+def test_motor_env_reset_and_step_match_jax(tmp_path):
+    """jvrc_walk with motor_dynamics, pdrand_k and sim_bemf on, against the
+    JAX env reading the same values from a YAML (physics at R=1 on both
+    sides), the JAX motor weights carried over: reset and 3 steps with
+    every draw injected, then 2 more steps.
+
+    With the motor hook on, a back-EMF gain of U(5, 40) makes the
+    reference unstable: the hook applies the last pushed torque, damping
+    term included, one substep late on odd counts, and the env's joint
+    velocities grow to the 1e4 clamp within about two control steps. The
+    keys (seed 20) give one back-EMF event in the first four steps, in env
+    2 after step 3, so steps 1-3 compare every env; steps 4-5 compare the
+    other envs and show both packages blowing up env 2 alike."""
+    import json
+
+    import yaml
+
+    from learninghumanoidwalking_tpu_torch.envs import humanoid as th
+    from learninghumanoidwalking_tpu_torch.rl import convert
+
+    cfg = json.load(open(f"{th.CONFIG_DIR}/jvrc_motor.json"))
+    cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    cfg.update(sim_bemf=True, physics_reuse_interval=1)
+    (tmp_path / "m.json").write_text(json.dumps(cfg))
+    (tmp_path / "m.yaml").write_text(yaml.safe_dump(cfg))
+    jenv = JaxJvrcWalkEnv(str(tmp_path / "m.yaml"))
+    tenv = JvrcWalkEnv(str(tmp_path / "m.json"), device="cpu")
+    assert jenv.motor_enabled and tenv.motor_enabled and jenv.pdrand_k == tenv.pdrand_k == 0.1
+    assert jenv.sim_bemf and tenv.sim_bemf and jenv.physics_reuse == 1
+    tenv.motor_params = convert.motor_params({k: np.asarray(v) for k, v in jenv.motor_params.items()})
+
+    n = 4
+    keys = jax.random.split(jax.random.PRNGKey(20), n)
+    js = jax.jit(jenv.reset_batch)(keys)
+    ts = tenv.reset_batch(n, InjectedDraws(reset_draws(keys, jenv.period)))
+    np.testing.assert_allclose(ts.obs.numpy(), np.asarray(js.obs), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(ts.motor.count.numpy(), np.zeros(n, np.int32))
+
+    rng = np.random.default_rng(2)
+    jstep = jax.jit(jenv.step_batch)
+    events = []
+    for step in range(5):
+        actions = (0.2 * rng.standard_normal((n, 12))).astype(np.float32)
+        act_draws = _actuator_draws(js.key, 0.1, 12)
+        events.append(act_draws["bemf.event"] == 0)
+        draws = InjectedDraws({**step_draws(js.key), **act_draws})
+        js = jstep(js, jnp.asarray(actions))
+        ts = tenv.step_batch(ts, torch.tensor(actions), draws)
+        np.testing.assert_array_equal(ts.motor.count.numpy(), np.asarray(js.motor.count))
+        np.testing.assert_array_equal(ts.motor.count.numpy(), np.full(n, 25 * (step + 1)))
+        for f in ("kp", "kd", "bemf_gain"):
+            np.testing.assert_allclose(getattr(ts.dyn, f).numpy(), np.asarray(getattr(js.dyn, f)), rtol=0, atol=1e-6, err_msg=f)
+        envs = slice(None) if step < 3 else [0, 1, 3]
+        np.testing.assert_allclose(ts.obs.numpy()[envs], np.asarray(js.obs)[envs], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(
+            ts.reward_components.numpy()[envs], np.asarray(js.reward_components)[envs], rtol=0, atol=1e-3
+        )
+        np.testing.assert_array_equal(ts.done.numpy()[envs], np.asarray(js.done)[envs])
+    assert [e.tolist() for e in events[:4]] == [[False] * 4, [False] * 4, [False, False, True, False], [False] * 4]
+    assert float(np.abs(np.asarray(js.dyn.bemf_gain)[2]).min()) >= 5.0
+    assert float(ts.physics.qvel[2].abs().max()) > 100 and float(np.abs(np.asarray(js.physics.qvel)[2]).max()) > 100

@@ -31,6 +31,7 @@ def _imported_roots(path: pathlib.Path) -> set:
 def test_port_has_files():
     assert len(FILES) > 20
     assert (REPO / "chip_smoke.py").exists()
+    assert REPO / "learninghumanoidwalking_tpu_torch" / "robots" / "motor.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

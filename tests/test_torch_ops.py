@@ -12,18 +12,24 @@ the dense 3nc x 3nc contact solve that K1 itself runs (more than 1.5x
 bench.py's) fails, so the bound cannot be inflated by K1's own algorithm.
 The terrain-box model (jvrc_step: 20 boxes, 16 slots) is counted at R=1, as
 the reference and K2 run it.
+
+The motor term of the count (K4) is held to the widths of the default
+motor nets (50 -> 32 -> 32 -> 1 per joint, 12 joints): bench.py traces no
+motor kernel, so there is no traced count to compare it with.
 """
 
 import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 from learninghumanoidwalking_tpu.models import jvrc as jax_jvrc
 from learninghumanoidwalking_tpu.physics.spec import lower as jax_lower
 from learninghumanoidwalking_tpu_torch.models import jvrc
 from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
+from learninghumanoidwalking_tpu_torch.robots.motor import init_motor_params
 
 
 def _bench():
@@ -42,13 +48,69 @@ def test_flop_count_is_the_woodbury_form(nterrain, reuse):
     assert 0.75 * traced <= counted <= traced, (counted, traced)
 
 
-# the caps the two builds report (csrc/control_step.cu, LHW_TERRAIN 0 / 1)
+def _motor(nu=12, hidden=(32, 32)):
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return init_motor_params(gen, nu, hidden)
+
+
+def test_motor_work_count():
+    """K4's motor term: per joint 50*32 + 32*32 + 32 = 2656 FMAs (2 flops
+    each), 65 bias adds, 64 tanh (8 each, as sin and cos) and 2 for the
+    skip term, for 12 joints; bytes: the two histories (12 x 25 floats
+    each) and the int32 count in and out per env, and the weights once."""
+    flat = lower(jvrc.jvrc_spec(), device="cpu")
+    params = _motor()
+    per_joint = 2 * 2656 + 65 + 8 * 64 + 2
+    assert sk.motor_flops_per_net(params) == 12 * per_joint == 70692
+    assert sk.flops_per_env_substep(flat, 1, motor=params) - sk.flops_per_env_substep(flat, 1) == 12 * per_joint
+    n_weights = 12 * (50 * 32 + 32 + 32 * 32 + 32 + 32 + 1 + 1)
+    assert n_weights == 32664
+    for batch in (1, 4096, 32768):
+        extra = sk.bytes_per_launch(flat, batch, motor=params) - sk.bytes_per_launch(flat, batch)
+        assert extra == batch * (2 * 2 * 12 * 25 * 4 + 2 * 4) + 4 * n_weights
+    assert sk.bytes_per_launch(flat, 1) == 2484
+    # the least time of a 25-substep step launch at B=32768 is set by operations
+    flops = sk.flops_per_env_substep(flat, 1, motor=params) * 25 * 32768
+    assert flops / 67e12 > 10 * sk.bytes_per_launch(flat, 32768, motor=params) / 3.35e12
+
+
+def test_motor_blocks_layout():
+    """K4's motor inputs from a batch-leading MotorState: joint-major
+    trailing-batch history rows n * 25 + slot (oldest first), the count as
+    int32 (1, B), the weights in the kernel's order (per layer w then b,
+    then skip), the layer count and hidden widths (0 past the last)."""
+    from learninghumanoidwalking_tpu_torch.robots.motor import MotorState
+
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    b, h, nu = 3, 25, 12
+    state = MotorState(qdot_hist=torch.randn((b, h, nu), generator=gen), ctau_hist=torch.randn((b, h, nu), generator=gen),
+                       count=torch.tensor([0, 24, 1001], dtype=torch.int32))
+    for hidden in ((32, 32), (64,)):
+        params = _motor(hidden=hidden)
+        blk = sk.motor_blocks(params, state, torch.device("cpu"))
+        assert (blk["layers"], blk["hid0"], blk["hid1"]) == (len(hidden) + 1, hidden[0], hidden[1] if len(hidden) > 1 else 0)
+        for name, hist in (("qd_hist", state.qdot_hist), ("ct_hist", state.ctau_hist)):
+            assert blk[name].shape == (nu * h, b) and blk[name].is_contiguous()
+            for n, slot, env in ((0, 0, 0), (5, 24, 2), (11, 13, 1)):
+                assert blk[name][n * h + slot, env] == hist[env, slot, n]
+        assert blk["count"].dtype == torch.int32 and blk["count"].tolist() == [[0, 24, 1001]]
+        order = [params[f"{k}{li}"].reshape(-1) for li in range(params["n_layers"]) for k in ("w", "b")] + [params["skip"]]
+        assert torch.equal(blk["weights"], torch.cat(order))
+
+
+# the caps the three builds report (csrc/control_step.cu: LHW_TERRAIN 0 / 1,
+# LHW_MOTOR 1)
 CAPS = dict(MAX_B=16, MAX_V=20, MAX_Q=21, MAX_U=16, MAX_F=2)
 FLAT = dict(CAPS, LHW_TERRAIN=0, MAX_C=8, MAX_T=0, MAX_HF=0)
 TERRAIN = dict(CAPS, LHW_TERRAIN=1, MAX_C=16, MAX_T=32, MAX_HF=1024)
+MOTOR = dict(FLAT, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3)
 
 
 def test_check_model_takes_terrain_and_refuses_motor_models():
+    """The K1 and terrain builds take no motor model; the motor build (K4)
+    takes one on the flat floor within its caps, and none on terrain."""
     flat, boxes = lower(jvrc.jvrc_spec(), device="cpu"), lower(jvrc.jvrc_spec(nterrain=20), device="cpu")
     sk.check_model(flat, FLAT)
     sk.check_model(boxes, TERRAIN)  # K2
@@ -64,3 +126,23 @@ def test_check_model_takes_terrain_and_refuses_motor_models():
     with pytest.raises(ValueError, match="K4"):
         sk.check_model(boxes, TERRAIN, motor=object())
     assert [sk.variant(flat, False), sk.variant(boxes, False), sk.variant(flat, True)] == ["K1", "K2", "K3"]
+
+    motor = _motor()
+    sk.check_model(flat, MOTOR, motor=motor)  # K4
+    sk.check_model(flat, MOTOR, motor=_motor(hidden=(64,)))
+    assert sk.variant(flat, False, motor=True) == "K4"
+    for lay in (FLAT, TERRAIN):
+        with pytest.raises(ValueError, match="motor build"):
+            sk.check_model(flat, lay, motor=motor)
+    with pytest.raises(ValueError, match="terrain \\+ motor build"):
+        sk.check_model(boxes, MOTOR, motor=motor)
+    with pytest.raises(ValueError, match="terrain \\+ motor build"):
+        sk.check_model(flat, TERRAIN, hfield_shape=(16, 16), motor=motor)
+    with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
+        sk.check_model(flat, MOTOR, motor=_motor(hidden=(32, 32, 32)))
+    with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
+        sk.check_model(flat, MOTOR, motor=_motor(hidden=(128,)))
+    with pytest.raises(ValueError, match="12 joints"):
+        sk.check_model(flat, MOTOR, motor=_motor(nu=10))
+    # the wrapper pins R=1 for motor steps, as for terrain
+    assert [sk.kernel_reuse(None, 5), sk.kernel_reuse(None, 5, motor=True)] == [5, 1]

@@ -199,3 +199,62 @@ def test_update_step_matches_jax(setup):
     for name, p in tts2.critic.named_parameters():
         _rel_close(p.detach().numpy(), want_c[name].numpy(), 1e-4)
     assert moved > 1e-5  # the update did change the weights
+
+
+def test_adam_skips_nonfinite_steps_as_optax_does():
+    """The port's Adam against optax.apply_if_finite(chain(clip_by_global_norm,
+    adam), max_consecutive_errors=100), as the JAX trainer builds it (lr
+    3e-4, eps 1e-5, max_norm 0.5), over one gradient sequence: finite
+    steps; one finite gradient of entries 1e20, whose squared norm
+    overflows float32 (applied: clipped to zero, the moments and the count
+    advance); 101 consecutive gradients holding a NaN (100 skipped, the
+    101st applied, which makes everything NaN); finite steps again.
+    Parameters, both moments and the count are compared after every step,
+    1e-6 relative to each quantity's largest magnitude, NaN where NaN."""
+    import optax
+
+    rng = np.random.default_rng(11)
+    shapes = [(3, 4), (4,), (2,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    tx = optax.apply_if_finite(
+        optax.chain(optax.clip_by_global_norm(0.5), optax.adam(3e-4, eps=1e-5)), max_consecutive_errors=100
+    )
+    j_params = [jnp.asarray(p) for p in p0]
+    j_state = tx.init(j_params)
+    j_step = jax.jit(lambda g, s, p: tx.update(g, s, p))
+    t_params = [torch.tensor(p) for p in p0]
+    opt = ppo.Adam(t_params, 3e-4, 1e-5, 0.5)
+
+    def grads(kind):
+        g = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        if kind == "huge":
+            g = [np.full(s, 1e20, np.float32) for s in shapes]
+        elif kind == "nan":
+            g[1][2] = np.nan
+        return g
+
+    seq = ["finite"] * 4 + ["huge"] + ["finite"] * 2 + ["nan"] * 101 + ["finite"] * 3
+
+    def close(mine, theirs, what):
+        mine, theirs = np.asarray(mine, np.float64), np.asarray(theirs, np.float64)
+        np.testing.assert_array_equal(np.isnan(mine), np.isnan(theirs), err_msg=what)
+        ok = ~np.isnan(theirs)
+        scale = max(float(np.max(np.abs(theirs[ok]), initial=0.0)), 1e-30)
+        assert float(np.max(np.abs(mine[ok] - theirs[ok]), initial=0.0)) <= 1e-6 * scale, what
+
+    for i, kind in enumerate(seq):
+        g = grads(kind)
+        updates, j_state = j_step([jnp.asarray(x) for x in g], j_state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        opt.step([torch.tensor(x) for x in g])
+        adam = j_state.inner_state[1][0]
+        where = f"step {i} ({kind})"
+        assert float(opt.count) == int(adam.count), where
+        for k in range(len(shapes)):
+            close(t_params[k].numpy(), j_params[k], f"{where} param {k}")
+            close(opt.mu[k].numpy(), adam.mu[k], f"{where} mu {k}")
+            close(opt.nu[k].numpy(), adam.nu[k], f"{where} nu {k}")
+        assert int(opt.notfinite_count) == int(j_state.notfinite_count), where
+    # the overflow step was applied, the 101st NaN step too
+    assert int(adam.count) == 4 + 1 + 2 + 1 + 3
+    assert np.isnan(np.asarray(j_params[0])).all()
