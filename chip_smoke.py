@@ -9,12 +9,13 @@ the phase's own seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the three kernel libraries of learninghumanoidwalking_tpu_torch/
-   ops/csrc/, built at once with nvcc into ctypes-loaded libraries: K1
-   (flat floor, control_step.cu), the terrain build that K2 (terrain boxes)
-   and K3 (heightfield) share (control_step_terrain.cu: a group of lanes per
-   env, the Woodbury contact solve), and the motor build (K4: K1 plus the
-   learned motor hook); ptxas's registers, stack frame and spill bytes of
-   every library;
+   ops/csrc/control_step_lanes.cu (a group of lanes per env, its working set
+   in shared memory, the Woodbury contact solve), built at once with nvcc
+   into ctypes-loaded libraries: the flat build (K1, flat floor, the
+   factorization reused over R substeps), the terrain build that K2 (terrain
+   boxes) and K3 (heightfield) share, and the motor build (K4: the flat
+   floor at R=1 plus the learned motor hook); ptxas's registers, stack frame
+   and spill bytes of every library;
 3. each kernel against its plain PyTorch version (physics/batched.py) on the
    card, on seeded states and terrain after an env reset: K1 on jvrc_walk,
    K2 on jvrc_step (20 stepping-stone boxes), K3 on jvrc_walk_rough (16x16
@@ -183,7 +184,8 @@ def main() -> int:
     # max_abs_err reports these
     abs_fields = ("qpos", "xpos", "xquat", "act_torque", "cpos", "cdist", "cmask", "cnormal")
     RTOL, SENS = 1e-4, 10.0
-    # K1 must pass that rule in every env. K2 (jvrc_step: its Woodbury
+    # K1 must pass that rule in every env (step at R=5 and settle), though it
+    # runs the Woodbury contact solve too. K2 (jvrc_step: its Woodbury
     # contact solve rounds otherwise than the plain version's dense one, so
     # a bistable env lands elsewhere), K3 (jvrc_walk_rough: dynamics
     # randomization, soft contacts on a heightfield) and K4 (the motor path,

@@ -1,18 +1,24 @@
-// K2 (terrain boxes) and K3 (heightfield): control step — frame_skip PD +
-// rigid-body physics substeps per env in ONE launch, written by hand for
-// Hopper (sm_90a).
+// K1-K4: control step — frame_skip PD + rigid-body physics substeps per
+// env in ONE launch, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by make_control_step in
 // learninghumanoidwalking_tpu/ops/substep_kernel.py (its pl.pallas_call at
-// :1296) with terrain: 16 contact slots, a per-slot kind table (flat /
-// floor / hfield / box, the Pallas slot kinds of substep_kernel.py:176-210),
-// per-env terrain inputs, tilted contact frames and the contact normals as
-// output. It computes what that kernel and its plain twin
-// physics/batched.py::pd_substeps_batched compute; the plain PyTorch version
-// in this package (physics/batched.py, the dense contact solve) is the
-// reference it is held to. The reference pins R=1 for terrain
-// (substep_kernel.py:1360-1364), and so does this kernel: the mass matrix,
-// its factor and the contact basis are rebuilt every substep.
+// :1296) in its four variants, from three builds of this one source:
+//   flat (LHW_TERRAIN 0): K1, the flat floor, 8 contact slots, the (z, x, y)
+//     frame; the factorization reused over groups of R substeps;
+//   terrain (LHW_TERRAIN 1, the default): K2 (terrain boxes) and K3
+//     (heightfield), 16 contact slots, a per-slot kind table (flat / floor /
+//     hfield / box, the Pallas slot kinds of substep_kernel.py:176-210),
+//     per-env terrain inputs, tilted contact frames and the contact normals
+//     as output; R=1;
+//   motor (LHW_TERRAIN 0, LHW_MOTOR 1): K4, the flat floor at R=1 plus the
+//     learned motor hook of substep_kernel.py:1036-1102 (see "Motor" below).
+// (No terrain + motor build exists; the wrapper refuses that model.) It
+// computes what that kernel and its plain twin
+// physics/batched.py::pd_substeps_batched compute; the plain PyTorch
+// version in this package (physics/batched.py, the dense contact solve, and
+// robots/motor.py) is the reference it is held to. The reference pins R=1
+// on terrain and with the motor hook (substep_kernel.py:1360-1368).
 //
 // The contact solve is the Pallas kernel's (substep_kernel.py:508-535,
 // 696-890), not the dense 3nc x 3nc one: every contact row is a 6-term
@@ -35,37 +41,74 @@
 // world origin (basis_at). Factors keep their diagonal's reciprocals, so
 // the solves multiply instead of divide (float64 division is slow).
 //
+// Factorization reuse (the flat build at R > 1: physics/batched.py's
+// contract, the Pallas substep's): every R-th substep refreshes CRBA, M's
+// factor, the basis (S masked to the feet's ancestor dofs, about the foot
+// origins of that substep), Y, G and LG; the other substeps recompute FK,
+// S, the velocities, the bias forces and the contacts, and form the
+// contact coefficients (from each point's offset to its foot's origin AT
+// THE REFRESH, so that with the lagged basis the row is the plain
+// version's), Chat, D and K afresh, and map the force back through the
+// lagged basis and factor. What a refresh leaves for its group (M's factor,
+// G, LG, the lagged S and foot origins) lives outside the scratch union.
+//
 // What bounds it on this card: f32 operations (flops_per_env_substep in the
 // wrapper counts this form: ~57k flops per env-substep for 20 boxes and 16
-// slots, ~43k for a 16x16 heightfield; ~300 flops a byte moved, far above the
-// card's ridge point of 20). The arithmetic is a long chain of small
-// dependent steps per env (tree recursions over 15 bodies, 18x18 and 12x12
-// factorizations, an iterative projection), so the design is about keeping
-// that chain out of device memory and spreading each step over lanes:
+// slots, ~43k for a 16x16 heightfield, ~29k on the flat floor at R=5 and
+// ~39k at R=1, plus ~71k for the motor nets; ~300 flops a byte moved, far
+// above the card's ridge point of 20). The arithmetic is a long chain of
+// small dependent steps per env (tree recursions over 15 bodies, 18x18 and
+// 12x12 factorizations, an iterative projection), so the design is about
+// keeping that chain out of device memory and spreading each step over
+// lanes:
 //  - ONE ENV PER GROUP OF GRP LANES (a power of two, LHW_G, at most a warp).
 //    Independent rows (dofs, bodies, keys, Gram and K entries, contact
-//    slots, box-SDF pairs) are spread over the group; the tree recursions
-//    (FK) run level by level; sums across lanes use __shfl_xor_sync inside
-//    the group, and __syncwarp on the group's mask orders its shared-memory
-//    steps. Every helper collapses to the serial loop at GRP = 1.
+//    slots, box-SDF pairs, motor joints) are spread over the group; the tree
+//    recursions (FK) run level by level; sums across lanes use
+//    __shfl_xor_sync inside the group, and __syncwarp on the group's mask
+//    orders its shared-memory steps. Every helper collapses to the serial
+//    loop at GRP = 1.
 //  - THE WORKING SET IN SHARED MEMORY, not thread-local memory: each env
-//    owns a fixed region (offsets E_* from the caps below; 8.75 KB) plus
-//    its terrain, in dynamic shared memory (above 48 KB by opt-in). It holds the
+//    owns a fixed region (offsets E_* from the caps below; 8.75 KB on
+//    terrain, 7.6 KB flat, 10.7 KB with the motor histories) plus its
+//    terrain, in dynamic shared memory (above 48 KB by opt-in). It holds the
 //    kinematics, M's factor, the basis solves Y, G and LG, Chat, K and its
-//    factor; the dynamics, refresh and contact phases reuse one scratch
-//    union (W_*). The vectors a lane owns stay in registers: its actuators'
-//    PD inputs, its dofs' damping and friction, its bodies' mass, CoM and
-//    applied wrench, and for its contact slots the basis coefficients, D,
-//    the right-hand side and the force.
+//    factor; the dynamics, refresh, contact phases and motor nets reuse one
+//    scratch union (W_*). The vectors a lane owns stay in registers: its
+//    actuators' PD inputs, its dofs' damping and friction, its bodies' mass,
+//    CoM and applied wrench, and for its contact slots the basis
+//    coefficients, D, the right-hand side and the force.
 //  - THE TERRAIN staged once per launch: the block's envs are a contiguous
 //    column range of the (rows, B) terrain inputs, copied with cp.async into
 //    shared memory (8 nt + 1 floats for the boxes, H W + 5 for a
-//    heightfield), not re-read from global memory every substep.
+//    heightfield), not re-read from global memory every substep. The flat
+//    floor stages none.
 // The launch plan (envs per block, the per-env stride, the dynamic shared
 // bytes, the grid) is the wrapper's (ops/substep_kernel.py::launch_plan).
 // Tensor cores are not used: the physics must stay f32 (TF32 keeps about 3
 // decimal digits against the 1e-4 relative rule the kernel is held to), and
 // the per-env matrices are 12x12 and 12x18, far below a useful MMA tile.
+//
+// Motor (K4). Every substep's PD torque passes through the learned motor
+// hook of robots/motor.py before ctrl = tau / gear: per joint a rolling
+// 25-slot history of (joint velocity, commanded torque), pushed every
+// substep while count < 25 and then on even counts; once warm, a per-joint
+// MLP (50 -> 32 -> 32 -> 1, tanh hidden layers, linear output, plus a skip
+// weight times the newest pushed torque) gives the applied torque. The
+// histories sit in the env's shared region as rings with one head (a push
+// writes one slot a joint and moves nothing); they come in and go out as
+// joint-major trailing-batch blocks (rows n * 25 + slot, oldest first), the
+// int32 substep count as (1, B). The owning lanes push; then the whole
+// group runs the joints' nets in turn (group_motor_net), each lane a share
+// of a layer's units, so that a warp's load of the weights touches one
+// cache line (with a lane per joint it touched 12, one L1 wavefront each,
+// and the nets took 50 of the 92 ms of a B=32768 launch on the card). The
+// weights (32,664 floats, 130.7 KB at the default widths) stay in global
+// memory and are read through the read-only cache, from L2: staging each
+// joint's 10.9 KB in shared memory for the whole block (cp.async, two
+// buffers) made the nets faster but cost as much in block-wide barriers
+// (PERF.md). FMAs in float32 and tanhf, not a fast tanh; no tensor cores
+// (TF32 keeps about 3 digits against the rule's 1e-4).
 //
 // A thread gathers what a TPU lane cannot, so each bilinear heightfield
 // sample reads only the 4 nodes around it (the Pallas kernel contracts tent
@@ -88,6 +131,15 @@
 
 #include "control_step_math.cuh"
 
+#ifndef LHW_TERRAIN
+#define LHW_TERRAIN 1  // 1: the terrain build (K2, K3); 0: the flat floor (K1, K4)
+#endif
+#ifndef LHW_MOTOR
+#define LHW_MOTOR 0    // 1: the motor hook (K4)
+#endif
+#if LHW_TERRAIN && LHW_MOTOR
+#error "no terrain + motor build: the motor hook runs on the flat floor"
+#endif
 #ifndef LHW_G
 #define LHW_G 16  // lanes per env (a power of two, at most 32)
 #endif
@@ -102,10 +154,21 @@
 #define MAX_V 20    // dofs
 #define MAX_Q (MAX_V + 1)
 #define MAX_U 16    // actuators
+#if LHW_TERRAIN
 #define MAX_C 16    // contact slots: floor/hfield + box per foot corner
 #define MAX_T 32    // terrain boxes per env
 #define MAX_HF 1024 // heightfield nodes per env
+#else
+#define MAX_C 8     // contact slots: the flat floor per foot corner
+#define MAX_T 0
+#define MAX_HF 0
+#endif
 #define MAX_F 2     // distinct foot bodies carrying contact slots
+#if LHW_MOTOR
+#define MAX_H 25       // motor history slots (the reference's buffer length)
+#define MAX_HID 64     // motor MLP hidden width
+#define MAX_LAYERS 3   // motor MLP layers (hidden + output)
+#endif
 #define MAX_K (6 * MAX_F)  // contact basis keys
 #define TRI(n) ((n) * ((n) + 1) / 2)  // packed lower triangle; row i at TRI(i)
 
@@ -229,11 +292,44 @@
 #define W_LK (W_KW + 2 * TRI(MAX_K))
 #define W_LKRD (W_LK + 2 * TRI(MAX_K))  // LK's reciprocal diagonal
 #define W_SIZE (W_LKRD + 2 * MAX_K)
+#if LHW_MOTOR
+// the motor nets (before the dynamics, at the start of a substep): a
+// joint's first hidden layer, then its inputs
+#define W_NET 0
+static_assert(W_NET + MAX_HID + 2 * MAX_H <= W_SIZE, "motor scratch past the union");
+#endif
+#if LHW_TERRAIN
 #define SM_FIXED (E_WORK + W_SIZE)     // the terrain follows: 8 nt box floats, H W + 4 heightfield floats, floor_z
+#else
+// the flat floor stages no terrain; what a refresh leaves for the substeps
+// of its reuse group (besides M's factor, G and LG above) sits past the
+// union: the motion subspace S and the foot bodies' origins it was taken
+// at (the lagged basis: basis_at and corner_offset read them in place of
+// E_S and E_XPOS, so a contact's row is the plain version's, the current
+// point against the lagged basis); with the motor hook, the histories as
+// rings
+#define E_SREF (E_WORK + W_SIZE)
+#define E_OREF (E_SREF + 6 * MAX_V)      // [body][3], the foot bodies' only
+#if LHW_MOTOR
+#define E_QDH (E_OREF + 3 * MAX_B)     // [joint][slot] joint velocities
+#define E_CTH (E_QDH + MAX_U * MAX_H)  // [joint][slot] commanded torques
+#define SM_FIXED (E_CTH + MAX_U * MAX_H)
+#else
+#define SM_FIXED (E_OREF + 3 * MAX_B)
+#endif
+#endif
 static_assert(TRI(MAX_V) <= W_ICOMP, "MW overlaps ICOMP");
 static_assert(W_ICOMP + NINER * MAX_B <= W_SIZE && W_GSUB + 6 * MAX_B <= W_SIZE, "dynamics scratch past the union");
 static_assert(W_GRD + MAX_K <= W_SIZE, "basis scratch past the union");
 static_assert(E_DINV % 2 == 0 && E_WORK % 2 == 0 && W_KW % 2 == 0 && W_LK % 2 == 0, "float64 arrays at odd offsets");
+
+#if LHW_TERRAIN
+#define LHW_KERNEL control_step_terrain_kernel
+#elif LHW_MOTOR
+#define LHW_KERNEL control_step_motor_kernel
+#else
+#define LHW_KERNEL control_step_flat_kernel
+#endif
 
 // ---- group helpers ----
 #if defined(__CUDA_ARCH__)
@@ -556,8 +652,82 @@ __device__ __forceinline__ float basis_at(const int* si, const float* s, const f
   return sd[k] - (o[k1] * sd[k2] - o[k2] * sd[k1]);
 }
 
-extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_kernel(
+#if LHW_MOTOR
+// Input i of a joint's net: its 25 joint velocities, then its 25 commanded
+// torques, oldest first (ring index (head + slot) % MAX_H).
+__device__ __forceinline__ float motor_input(const float* qdh, const float* cth, int head, int i) {
+  const float* h = (i < MAX_H) ? qdh : cth;
+  int r = head + (i < MAX_H ? i : i - MAX_H);
+  if (r >= MAX_H) r -= MAX_H;
+  return h[r];
+}
+
+// Applied torque of joint n through its MLP, computed by the whole group:
+// skip * the newest commanded torque + the net of its histories (rings qdh,
+// cth, the oldest slot at ring index head). Weights mw: per layer l, w_l
+// (nu, d_l, d_{l+1}) then b_l (nu, d_{l+1}), row-major as robots/motor.py
+// stacks them; then skip (nu). dims: d_0 = 2 MAX_H, hidden widths, d_nl = 1.
+// The inputs go to xbuf in their order first. Lane j computes units j,
+// j + GRP, ... of each hidden layer, one at a time with one accumulator, so
+// for each input the group reads a contiguous run of the weight row (one
+// cache line, through the read-only cache; the other env of the warp reads
+// the same line) and the inputs are broadcast from shared memory; the loop
+// over the inputs is unrolled so that ten loads are in flight. A unit sums
+// its bias, then its inputs in turn (the reference's order). The first of
+// two hidden layers goes to hbuf; the last hidden layer folds into the
+// output in the lanes, whose partial sums meet in a butterfly. Every lane
+// returns the torque. tanhf, not a fast tanh. hbuf holds MAX_HID + 2 MAX_H
+// floats of shared memory. Call where the whole group arrives.
+__device__ float group_motor_net(const float* __restrict__ mw, int nu, int nl, const int* dims, int n, const float* qdh,
+                                 const float* cth, int head, float* hbuf, int lane) {
+  const int last = nl - 1;  // the output layer (one unit)
+  float* const xbuf = hbuf + MAX_HID;  // the inputs in their order
+  for (int i = lane; i < dims[0]; i += GRP) xbuf[i] = motor_input(qdh, cth, head, i);
+  group_sync();
+  int off = 0, off_out = 0;
+#pragma unroll 1
+  for (int l = 0; l < last; ++l) off_out += nu * dims[l] * dims[l + 1] + nu * dims[l + 1];
+  const float* w_out = mw + off_out + n * dims[last];
+  float part = 0.f;
+  if (last == 0) {
+#pragma unroll 1
+    for (int i = lane; i < dims[0]; i += GRP) part += xbuf[i] * __ldg(w_out + i);
+  }
+#pragma unroll 1
+  for (int l = 0; l < last; ++l) {
+    const int din = dims[l], dout = dims[l + 1];
+    const float* w = mw + off + n * din * dout;
+    const float* bias = mw + off + nu * din * dout + n * dout;
+    const float* x = (l == 0) ? xbuf : hbuf;
+#pragma unroll 1
+    for (int o = lane; o < dout; o += GRP) {
+      float acc = __ldg(bias + o);
+#pragma unroll 10
+      for (int i = 0; i < din; ++i) acc += x[i] * __ldg(w + i * dout + o);
+      const float t = tanhf(acc);
+      if (l == last - 1) part += t * __ldg(w_out + o);
+      else hbuf[o] = t;
+    }
+    if (l < last - 1) group_sync();
+    off += nu * din * dout + nu * dout;
+  }
+  const float out = __ldg(mw + off_out + nu * dims[last] + n) + group_sum(part);
+  group_sync();  // hbuf and xbuf are read before the next joint writes them
+  const int newest = (head == 0) ? MAX_H - 1 : head - 1;
+  return __ldg(mw + off_out + nu * dims[last] + nu + n) * cth[newest] + out;
+}
+#endif
+
+extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     int batch, int frame_skip, int settle, float dt, int epb, int env_stride,
+#if !LHW_TERRAIN
+    int reuse,
+#endif
+#if LHW_MOTOR
+    const float* __restrict__ motor_w, int motor_layers, int motor_hid0, int motor_hid1,
+    const float* __restrict__ qd_hist_in, const float* __restrict__ ct_hist_in, const int* __restrict__ count_in,
+    float* __restrict__ qd_hist_out, float* __restrict__ ct_hist_out, int* __restrict__ count_out,
+#endif
     const float* __restrict__ ftab, const int* __restrict__ itab,
     const float* __restrict__ qpos_in, const float* __restrict__ qvel_in,
     const float* __restrict__ target, const float* __restrict__ kp_in,
@@ -584,6 +754,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
 
   const int B = batch;
   const int b0 = blockIdx.x * epb;
+#if LHW_TERRAIN
   const int nt = si[I_NT];
   const int hw = (hfield != nullptr) ? hf_h * hf_w : 0;
   // the terrain region: boxes (pos 3nt, size 3nt, cos nt, sin nt), the
@@ -611,6 +782,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
     copy_async_wait();
   }
   __syncthreads();
+#endif
 
   const int lane = threadIdx.x % GRP;
   const int b = b0 + (int)threadIdx.x / GRP;
@@ -634,13 +806,20 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
   float* const cdist = env + E_CDIST;
   double* const dinv = (double*)(env + E_DINV);
   float* const work = env + E_WORK;
+#if LHW_TERRAIN
   const float* const terr = env + SM_FIXED;
+#else
+  float* const sref = env + E_SREF;
+  float* const oref = env + E_OREF;
+#endif
 
   const int nb = si[I_NB], nv = si[I_NV], nq = si[I_NQ], nu = si[I_NU], nc = si[I_NC];
   const int nk = 6 * si[I_NFOOT];
   const float impmin = sf[F_IMPMIN], impdiff = sf[F_IMPDIFF], width = sf[F_WIDTH];
   const float kref = sf[F_KREF], bref = sf[F_BREF];
+#if LHW_TERRAIN
   const float fz = terr[t_fz];
+#endif
 
   // per-env state into shared memory; constant inputs into the owning lanes
   for (int r = lane; r < nq; r += GRP) q[r] = qpos_in[r * B + b];
@@ -690,14 +869,95 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
   float r_force[SPL][3];
 #pragma unroll
   for (int k = 0; k < SPL; ++k) r_force[k][0] = r_force[k][1] = r_force[k][2] = 0.f;
+#if LHW_MOTOR
+  // the motor histories into their rings (the oldest slot at ring index
+  // m_head), each joint's by the lane that owns it; the substep count and
+  // the ring head are the same in every lane of the group
+  float* const qdh = env + E_QDH;
+  float* const cth = env + E_CTH;
+#pragma unroll
+  for (int k = 0; k < APL; ++k) {
+    const int a = lane + k * GRP;
+    if (a < nu)
+#pragma unroll 1
+      for (int h = 0; h < MAX_H; ++h) {
+        qdh[a * MAX_H + h] = qd_hist_in[(a * MAX_H + h) * B + b];
+        cth[a * MAX_H + h] = ct_hist_in[(a * MAX_H + h) * B + b];
+      }
+  }
+  int m_head = 0;
+  int m_count = count_in[b];
+  int m_dims[MAX_LAYERS + 1];
+  m_dims[0] = 2 * MAX_H;
+  for (int l = 1; l < motor_layers; ++l) m_dims[l] = (l == 1) ? motor_hid0 : motor_hid1;
+  m_dims[motor_layers] = 1;
+#endif
   group_sync();
 
   const float* mu = sf + F_MU;
+#if LHW_TERRAIN
   const int nbox = si[I_NBOX];
+#endif
 
 #pragma unroll 1
   for (int sub = 0; sub < frame_skip; ++sub) {
-    // ---- PD torque -> actuator force (ctrlrange clamp, gear) ----
+#if !LHW_TERRAIN
+    const bool refresh = (sub % reuse) == 0;
+#endif
+#if LHW_MOTOR
+    // warm: the command passes through; push: every substep while warm,
+    // then on even counts (the oldest slot is dropped, the newest written)
+    const bool m_warm = m_count < MAX_H;
+    const bool m_push = m_warm || (m_count % 2) == 0;
+    const int m_next = m_push ? ((m_head + 1 == MAX_H) ? 0 : m_head + 1) : m_head;
+#endif
+    // ---- PD torque (through the motor hook) -> actuator force (ctrlrange
+    // clamp, gear) ----
+#if LHW_MOTOR
+    // the owning lanes push their joints' histories; once warm the group
+    // runs the joints' nets in turn, and each owning lane keeps its torque
+    float r_tau[APL];
+#pragma unroll
+    for (int k = 0; k < APL; ++k) {
+      const int a = lane + k * GRP;
+      r_tau[k] = 0.f;
+      if (a < nu && !settle) {
+        const float qa = q[si[I_ACTQ + a]], va = v[si[I_ACTD + a]];
+        r_tau[k] = r_kp[k] * (r_tgt[k] - qa) - r_kd[k] * va - r_bemf[k] * va;
+        if (m_push) {
+          qdh[a * MAX_H + m_head] = va;
+          cth[a * MAX_H + m_head] = r_tau[k];
+        }
+      }
+    }
+    if (!settle && !m_warm) {
+      group_sync();
+#pragma unroll 1
+      for (int n = 0; n < nu; ++n) {
+        const float t = group_motor_net(motor_w, nu, motor_layers, m_dims, n, qdh + n * MAX_H, cth + n * MAX_H, m_next,
+                                        work + W_NET, lane);
+#pragma unroll
+        for (int k = 0; k < APL; ++k)
+          if (n == lane + k * GRP) r_tau[k] = t;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < APL; ++k) {
+      const int a = lane + k * GRP;
+      if (a < nu) {
+        const float gear = sf[F_GEAR + a];
+        float ctrl = settle ? 0.f : r_tau[k] / gear;
+        const float lo = sf[F_CLO + a], hi = sf[F_CHI + a];
+        if (ctrl < lo) ctrl = lo;
+        if (ctrl > hi) ctrl = hi;
+        act[a] = gear * ctrl;
+      }
+    }
+    if (!settle) {  // settle substeps take no motor model
+      m_head = m_next;
+      ++m_count;
+    }
+#else
 #pragma unroll
     for (int k = 0; k < APL; ++k) {
       const int a = lane + k * GRP;
@@ -715,6 +975,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
         act[a] = gear * ctrl;
       }
     }
+#endif
 
     // ---- kinematics ----
     group_fk(sf, si, q, xpos, xquat, rmat, lane);
@@ -838,8 +1099,12 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
     }
     group_sync();
 
-    // ---- refresh (every substep): composite inertias, CRBA mass matrix
-    // + armature + dt damping, its Cholesky ----
+    // ---- refresh (every substep on terrain, every reuse-th on the flat
+    // floor): composite inertias, CRBA mass matrix + armature + dt damping,
+    // its Cholesky ----
+#if !LHW_TERRAIN
+    if (refresh) {
+#endif
     float* const icomp = work + W_ICOMP;
 #pragma unroll
     for (int k = 0; k < BPL; ++k) {
@@ -877,10 +1142,14 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
     }
     group_sync();
     group_cholesky(mw, lm, lrd, nv, lane);
+#if !LHW_TERRAIN
+    }
+#endif
     float* const qaccs = env + E_QACCS;
     float* const tmpv = env + E_TMPV;
     group_cho_solve(lm, lrd, nv, qfrc, tmpv, qaccs, lane);
 
+#if LHW_TERRAIN
     // ---- contact basis: Y = L^-1 B (forward substitutions), the basis
     // dots with qvel and qacc_smooth, the Gram G = Y^T Y and LG ----
     float* const y = work + W_Y;
@@ -922,6 +1191,60 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
     }
     group_sync();
     group_cholesky(gw, lg, work + W_GRD, nk, lane);
+#else
+    // ---- contact basis, at a refresh: the lagged basis (S and the foot
+    // origins of this substep), Y = L^-1 B (forward substitutions), the Gram
+    // G = Y^T Y and LG; every substep: the basis dots with qvel and
+    // qacc_smooth through the lagged basis ----
+    if (refresh) {
+      for (int r = lane; r < 6 * nv; r += GRP) sref[r] = s[r];
+      for (int r = lane; r < nk / 2; r += GRP) {
+        const int o = 3 * si[I_FOOTBODY + r / 3] + r % 3;
+        oref[o] = xpos[o];
+      }
+      group_sync();
+      float* const y = work + W_Y;
+#pragma unroll 1
+      for (int kk = lane; kk < nk; kk += GRP) {
+        float* yk = y + kk * MAX_V;
+#pragma unroll 1
+        for (int d = 0; d < nv; ++d) yk[d] = basis_at(si, sref, oref, kk, d);
+#pragma unroll 1
+        for (int j = 0; j < nv; ++j) {
+          const float yj = yk[j] * lrd[j];
+          yk[j] = yj;
+#pragma unroll 1
+          for (int i = j + 1; i < nv; ++i) yk[i] -= lm[TRI(i) + j] * yj;
+        }
+      }
+      group_sync();
+      float* const gw = work + W_GW;
+#pragma unroll 1
+      for (int p = lane; p < TRI(nk); p += GRP) {
+        int r, c;
+        tri_rc(p, r, c);
+        const float* ya = y + c * MAX_V;
+        const float* yb = y + r * MAX_V;
+        float acc = 0.f;
+#pragma unroll 1
+        for (int d = 0; d < nv; ++d) acc += ya[d] * yb[d];
+        gram[p] = acc;
+        gw[p] = (r == c) ? acc + 1e-8f : acc;  // G is SPD (independent basis rows through M^-1)
+      }
+      group_sync();
+      group_cholesky(gw, lg, work + W_GRD, nk, lane);
+    }
+#pragma unroll 1
+    for (int t = lane; t < 2 * nk; t += GRP) {
+      const int kk = t < nk ? t : t - nk;
+      const float* x = t < nk ? v : qaccs;
+      float acc = 0.f;
+#pragma unroll 1
+      for (int d = 0; d < nv; ++d) acc += basis_at(si, sref, oref, kk, d) * x[d];
+      u[(t < nk ? 0 : MAX_K) + kk] = acc;
+    }
+    group_sync();
+#endif
 
     // ---- contacts: corner points, distances, normals ----
 #pragma unroll
@@ -944,6 +1267,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
           p[rr] = gpos[rr] + (rg[3 * rr] * cl[0] + rg[3 * rr + 1] * cl[1] + rg[3 * rr + 2] * cl[2]);
           cw[3 * c + rr] = p[rr];
         }
+#if LHW_TERRAIN
         const int kind = si[I_SLOTKIND + c];
         float nrm[3] = {0.f, 0.f, 1.f};
         float dist;
@@ -974,9 +1298,14 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
           cdist[c] = dist;
           for (int rr = 0; rr < 3; ++rr) cn[3 * c + rr] = nrm[rr];
         }
+#else
+        cdist[c] = p[2];  // the z = 0 plane, its normal z
+        cn[3 * c] = 0.f; cn[3 * c + 1] = 0.f; cn[3 * c + 2] = 1.f;
+#endif
       }
     }
     group_sync();
+#if LHW_TERRAIN
     // terrain-box SDF (substep_kernel.py:625-686) over the (box slot, box)
     // pairs: lps lanes share a slot, each takes every lps-th box, and the
     // lanes' bests meet in a butterfly (the deeper score wins, the lower box
@@ -1044,6 +1373,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
       }
       group_sync();
     }
+#endif
 
     // ---- contact rows through the basis (the owned slots, in registers):
     // 6 coefficients on the foot's keys (row_coef); impedance, reference
@@ -1068,7 +1398,11 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
         r_mask[k] = m;
         float e[3][3], prel[3];
         slot_frame(si, cn, c, e);
+#if LHW_TERRAIN
         corner_offset(si, cw, xpos, c, prel);
+#else
+        corner_offset(si, cw, oref, c, prel);
+#endif
         const float pen = pmin(dist, 0.f);
         const float imp = impmin + impdiff * pmin(pmax(-pen / width, 0.f), 1.f);
         const float rreg = (1.f - imp) / pmax(imp, 1e-6f);
@@ -1239,7 +1573,11 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
         const int foot = si[I_SLOTFOOT + c];
         float e[3][3], prel[3];
         slot_frame(si, cn, c, e);
+#if LHW_TERRAIN
         corner_offset(si, cw, xpos, c, prel);
+#else
+        corner_offset(si, cw, oref, c, prel);
+#endif
 #pragma unroll
         for (int f = 0; f < 3; ++f) {
           float cf[6];
@@ -1262,7 +1600,11 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
         float f = 0.f;
 #pragma unroll
         for (int kk = 0; kk < MAX_K; ++kk)
+#if LHW_TERRAIN
           if (kk < nk) f += basis_at(si, s, xpos, kk, d) * wb[kk];
+#else
+          if (kk < nk) f += basis_at(si, sref, oref, kk, d) * wb[kk];
+#endif
         qcon[d] = f;
       }
     }
@@ -1336,13 +1678,31 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
   for (int r = lane; r < 3 * nb; r += GRP) xpos_out[r * B + b] = xpos[r];
   for (int r = lane; r < 4 * nb; r += GRP) xquat_out[r * B + b] = xquat[r];
   for (int r = lane; r < 6 * nb; r += GRP) cvel_out[r * B + b] = cvel[r];
+#if LHW_MOTOR
+  // the histories out, oldest first, each joint's by its lane
+#pragma unroll
+  for (int k = 0; k < APL; ++k) {
+    const int a = lane + k * GRP;
+    if (a < nu)
+#pragma unroll 1
+      for (int h = 0; h < MAX_H; ++h) {
+        int r = m_head + h;
+        if (r >= MAX_H) r -= MAX_H;
+        qd_hist_out[(a * MAX_H + h) * B + b] = qdh[a * MAX_H + r];
+        ct_hist_out[(a * MAX_H + h) * B + b] = cth[a * MAX_H + r];
+      }
+  }
+  if (lane == 0) count_out[b] = m_count;
+#endif
 }
 
 // Table layout for the Python side, which builds the tables and the launch
 // plan from it and keeps no copy: caps, lanes per env, the most threads a
 // block, table sizes, every offset, the dof-kind and slot-kind codes, and
-// the floats of an env's fixed shared region, as (name, value) pairs.
-#define LHW_LAYOUT(X)                                                                            \
+// the floats of an env's fixed shared region, as (name, value) pairs; the
+// flat-floor builds add the offsets of the lagged basis, the motor build
+// LHW_MOTOR, its caps and the offsets of its histories.
+#define LHW_LAYOUT_COMMON(X)                                                                     \
   X(LHW_TERRAIN) X(LHW_G) X(LHW_TPB) X(MAX_B) X(MAX_V) X(MAX_Q) X(MAX_U) X(MAX_C) X(MAX_T)       \
   X(MAX_HF) X(MAX_F) X(N_FTAB) X(N_ITAB) X(SM_FIXED)                                             \
   X(I_NB) X(I_NV) X(I_NQ) X(I_NU) X(I_NC) X(I_NFOOT) X(I_NT) X(I_NLEV) X(I_NBOX) X(I_PARENT)     \
@@ -1354,8 +1714,13 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) control_step_terrain_ke
   X(F_SGPOS) X(F_SGROT) X(F_SCORN) X(F_MU)                                                       \
   X(DOF_FREE_LIN) X(DOF_FREE_ANG) X(DOF_HINGE) X(DOF_SLIDE)                                    \
   X(SLOT_FLAT) X(SLOT_FLOOR) X(SLOT_HFIELD) X(SLOT_BOX)
-
-#define LHW_TERRAIN 1
+#if LHW_TERRAIN
+#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X)
+#elif LHW_MOTOR
+#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(E_SREF) X(E_OREF) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS) X(E_QDH) X(E_CTH)
+#else
+#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(E_SREF) X(E_OREF)
+#endif
 
 extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
 #define LHW_NAME(x) #x,
@@ -1373,14 +1738,19 @@ extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
 }
 
 // Launch on the caller's stream; returns the CUDA error (0 = launched). The
-// signature is the other builds' up to the launch plan (before the stream):
-// envs a block and the floats of an env's shared region (even, at least
-// SM_FIXED plus its terrain), from the wrapper's launch_plan. floor_z is required,
+// signature is the same in every build up to the build's own arguments: the
+// motor build's (the stacked weights, the layer count and the two hidden
+// widths, the histories (nu * MAX_H, B) and the int32 count (1, B) in and
+// out), then the launch plan, before the stream: envs a block and the floats
+// of an env's shared region (even, at least SM_FIXED, plus its terrain on
+// terrain), from the wrapper's launch_plan. On terrain floor_z is required,
 // the box blocks when the model has terrain boxes and the heightfield blocks
-// (hf_h, hf_w >= 2) when it has heightfield slots. reuse must be 1 (the
-// reference pins R=1 on terrain). Opts into the dynamic shared memory above
-// 48 KB; a refused launch (too much shared memory, too many threads)
-// returns its error.
+// (hf_h, hf_w >= 2) when it has heightfield slots; the flat-floor builds
+// ignore the terrain arguments. reuse must be 1 on terrain and with the
+// motor hook (the reference pins R=1 there); the flat floor refreshes every
+// reuse-th substep. Opts into the dynamic shared memory above 48 KB; a
+// refused launch (too much shared memory, too many threads) returns its
+// error.
 extern "C" int lhw_control_step(
     int batch, int frame_skip, int reuse, int settle, float dt,
     const void* ftab, const void* itab,
@@ -1392,17 +1762,36 @@ extern "C" int lhw_control_step(
     const void* hf_cell,
     void* qpos_out, void* qvel_out, void* qacc_out, void* act_out, void* cforce, void* cdist,
     void* cmask, void* cpos, void* cnormal, void* xpos, void* xquat, void* cvel,
+#if LHW_MOTOR
+    const void* motor_w, int motor_layers, int motor_hid0, int motor_hid1, const void* qd_hist,
+    const void* ct_hist, const void* count, void* qd_hist_out, void* ct_hist_out, void* count_out,
+#endif
     int envs_per_block, int env_stride, void* stream) {
   if (batch <= 0) return 0;
+#if LHW_TERRAIN
   if (reuse != 1 || envs_per_block < 1 || envs_per_block * GRP > LHW_TPB || env_stride < SM_FIXED + 1 || env_stride % 2)
     return (int)cudaErrorInvalidValue;
+#else
+  if (reuse < 1 || (LHW_MOTOR && reuse != 1) || envs_per_block < 1 || envs_per_block * GRP > LHW_TPB ||
+      env_stride < SM_FIXED || env_stride % 2)
+    return (int)cudaErrorInvalidValue;
+#endif
   const int smem = envs_per_block * env_stride * (int)sizeof(float);
-  const cudaError_t set = cudaFuncSetAttribute(control_step_terrain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t set = cudaFuncSetAttribute(LHW_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return (int)set;
   dim3 block(envs_per_block * GRP);
   dim3 grid((batch + envs_per_block - 1) / envs_per_block);
-  control_step_terrain_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  LHW_KERNEL<<<grid, block, smem, (cudaStream_t)stream>>>(
+#if LHW_TERRAIN
       batch, frame_skip, settle, dt, envs_per_block, env_stride, (const float*)ftab, (const int*)itab,
+#else
+      batch, frame_skip, settle, dt, envs_per_block, env_stride, reuse,
+#if LHW_MOTOR
+      (const float*)motor_w, motor_layers, motor_hid0, motor_hid1, (const float*)qd_hist, (const float*)ct_hist,
+      (const int*)count, (float*)qd_hist_out, (float*)ct_hist_out, (int*)count_out,
+#endif
+      (const float*)ftab, (const int*)itab,
+#endif
       (const float*)qpos, (const float*)qvel, (const float*)target, (const float*)kp,
       (const float*)kd, (const float*)bemf, (const float*)damping, (const float*)frictionloss,
       (const float*)body_mass, (const float*)body_ipos, (const float*)xfrc,

@@ -1,0 +1,185 @@
+"""Timing of the designs tried for K4's motor nets, on the card.
+
+Builds the motor library (K4) of csrc/control_step_lanes.cu as it stands
+("kept": the group of lanes on one joint at a time, a lane one unit at a
+time with one accumulator, the loop over the unit's inputs unrolled 10
+times) and in the variants of its nets that were tried and rejected:
+
+- ``unroll5``, ``unroll20``, ``unroll25``: the kept design with that loop
+  unrolled 5, 20 or 25 times;
+- ``units_in_registers`` (csrc/net_variants/units_in_registers.diff): lane
+  j accumulates the units j + 16 k of a layer in registers, input by input;
+- ``block_staged`` (csrc/net_variants/block_staged.diff): the design above
+  reading each joint's weights from shared memory, where the whole block
+  stages them with cp.async into two buffers (the next joint's while the
+  groups run this one's), at two ``__syncthreads`` a joint; its launch
+  plan leaves room for the two buffers beside the env regions.
+
+It times K4's step launch (jvrc_walk with envs/configs/jvrc_motor.json, 25
+substeps) at B=4096 and 32768 for each blocks-an-SM of 1-3 that
+``launch_plan`` sizes blocks for, with the motor counts set per env to 0,
+10, 24, 25, 26, 27, 50, 1001 in turn, as lane_sweep.py and chip_smoke.py
+set them ("nets on"), and with every count 0 ("nets off": the histories
+warm up through the whole launch and no net runs). Each variant's qpos and
+applied torques at two blocks an SM are held to the kept build's on the
+same inputs (the variants sum in another order: within 1e-3 rad and 1e-2
+N m); a variant that differs more makes the script exit 1. Its correctness
+beyond that is not this script's to check. Run from the repository root on
+a machine with a CUDA device:
+
+    python3 -m learninghumanoidwalking_tpu_torch.ops.net_sweep
+
+Prints the card's name and power limit, ptxas's report per variant, one
+JSON line per (variant, B, blocks an SM, nets) with the means of three runs
+of three launches each, and the table as a last JSON line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+BATCHES = (4096, 32768)
+BLOCKS = (1, 2, 3)
+UNROLLS = (5, 20, 25)
+DIFFS = ("units_in_registers", "block_staged")
+MOTOR_COUNTS = (0, 10, 24, 25, 26, 27, 50, 1001)
+KEPT_LOOP = "#pragma unroll 10\n      for (int i = 0; i < din; ++i) acc +="
+
+
+def apply_diff(text: str, diff: str) -> str:
+    """``text`` with each hunk of the unified ``diff`` applied where its old
+    lines (context and removed) occur, which must be exactly once."""
+    hunks = re.split(r"^@@[^\n]*@@\n", diff, flags=re.M)[1:]
+    for hunk in hunks:
+        lines = hunk.splitlines()
+        old = "".join(ln[1:] + "\n" for ln in lines if ln[:1] in (" ", "-"))
+        new = "".join(ln[1:] + "\n" for ln in lines if ln[:1] in (" ", "+"))
+        if text.count(old) != 1:
+            raise ValueError(f"a hunk's old lines occur {text.count(old)} times, not once:\n{old}")
+        text = text.replace(old, new)
+    return text
+
+
+def variant_sources(csrc: Path) -> dict[str, str]:
+    """The rejected variants' source texts, from the lane source as it stands."""
+    kept = (csrc / "control_step_lanes.cu").read_text()
+    if kept.count(KEPT_LOOP) != 1:
+        raise ValueError("the kept nets' unrolled input loop is not in the lane source")
+    out = {f"unroll{u}": kept.replace(KEPT_LOOP, KEPT_LOOP.replace("unroll 10", f"unroll {u}")) for u in UNROLLS}
+    for name in DIFFS:
+        out[name] = apply_diff(kept, (csrc / "net_variants" / f"{name}.diff").read_text())
+    return out
+
+
+def stage_floats(dims: list[int]) -> int:
+    """Floats of block_staged's two buffers of one joint's weights (per layer
+    d_l x d_{l+1} weights and d_{l+1} biases, and the skip weight), for nets
+    of layer widths ``dims``."""
+    return 2 * (1 + sum(a * b + b for a, b in zip(dims[:-1], dims[1:])))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("net_sweep: no CUDA device", file=sys.stderr)
+        return 2
+
+    from learninghumanoidwalking_tpu_torch.envs.humanoid import CONFIG_DIR
+    from learninghumanoidwalking_tpu_torch.envs.registry import make_env
+    from learninghumanoidwalking_tpu_torch.ops import build
+    from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
+    from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    kept_name, kept_sources, motor_defines = sk.LIBRARIES["motor"]
+    src_dir = build.BUILD_DIR / "net_variants"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    libraries = {"kept": sk.LIBRARIES["motor"]}
+    for name, text in variant_sources(build.CSRC).items():
+        path = src_dir / f"{name}.cu"
+        path.write_text(text)
+        # an absolute source path; the csrc headers on the include path
+        libraries[name] = (f"{kept_name}_{name}", (str(path),), motor_defines + (f"-I{build.CSRC}",))
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        paths = dict(zip(libraries, pool.map(lambda args: build.build_library(*args)[0], libraries.values())))
+    for name, path in paths.items():
+        print(f"{name} ptxas: " + " | ".join(build.ptxas_report(path)), flush=True)
+
+    def time_ms(fn, reps: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    env = make_env("jvrc_walk", path_to_json=os.path.join(CONFIG_DIR, "jvrc_motor.json"), device=dev)
+    reuse = sk.kernel_reuse(None, env.physics_reuse, motor=True)
+    cases = {}  # (B, nets) -> (positional args, motor state)
+    for batch in BATCHES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(batch)
+        states = env.reset_batch(batch, Draws(gen))
+        target = env.neutral_pose + 0.05 * torch.randn((batch, env.model.nu), generator=gen, device=dev)
+        args = (env.model, states.dyn, states.physics, target, env.frame_skip, env.sim_dt, None)
+        counts = torch.tensor(MOTOR_COUNTS, dtype=torch.int32, device=dev).repeat(batch // len(MOTOR_COUNTS) + 1)[:batch]
+        for nets, c in (("on", counts), ("off", torch.zeros_like(counts))):
+            cases[(batch, nets)] = (args, dataclasses.replace(states.motor, count=c))
+
+    def launch(batch: int, nets: str):
+        args, motor = cases[(batch, nets)]
+        return sk.pd_substeps_kernel(*args, reuse_interval=reuse, motor=(env.motor_params, motor))
+
+    rows, reference, disagree = [], {}, []
+    default_blocks, default_reserved = sk.BLOCKS_PER_SM, sk.SMEM_RESERVED
+    try:
+        for name, library in libraries.items():
+            sk._LIBS.pop("motor", None)
+            sk.LIBRARIES["motor"] = library
+            sk.SMEM_RESERVED = default_reserved + (4 * stage_floats(sk.motor_dims(env.motor_params)) if name == "block_staged" else 0)
+            for batch in BATCHES:
+                for blocks in BLOCKS:
+                    sk.BLOCKS_PER_SM = blocks
+                    plan = sk.launch_plan(env.model, batch, sk._library("motor")[1])
+                    for nets in ("on", "off"):
+                        ms = [time_ms(lambda: launch(batch, nets)) for _ in range(3)]
+                        rows.append(dict(variant=name, B=batch, blocks_per_sm=blocks, nets=nets, ms=ms,
+                                         envs_per_block=plan["envs_per_block"]))
+                        print(json.dumps(rows[-1]), flush=True)
+                sk.BLOCKS_PER_SM = 2
+                state, _ = launch(batch, "on")
+                torch.cuda.synchronize()
+                if name == "kept":
+                    reference[batch] = state
+                    continue
+                dq = (state.qpos - reference[batch].qpos).abs().max().item()
+                dtau = (state.act_torque - reference[batch].act_torque).abs().max().item()
+                print(json.dumps(dict(variant=name, B=batch, max_abs_dqpos=dq, max_abs_dtorque=dtau)), flush=True)
+                if not (dq <= 1e-3 and dtau <= 1e-2):
+                    disagree.append((name, batch, dq, dtau))
+    finally:
+        sk._LIBS.pop("motor", None)
+        sk.LIBRARIES["motor"] = (kept_name, kept_sources, motor_defines)
+        sk.BLOCKS_PER_SM, sk.SMEM_RESERVED = default_blocks, default_reserved
+    print(json.dumps({"net_sweep": rows}), flush=True)
+    if disagree:
+        print(f"net_sweep: variants that differ from the kept build: {disagree}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

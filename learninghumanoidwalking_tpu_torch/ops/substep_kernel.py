@@ -1,17 +1,16 @@
 """Kernels K1 (flat floor), K2 (terrain boxes), K3 (heightfield) and K4
-(learned motor hook, flat floor): the wrapper over csrc/control_step.cu and
-csrc/control_step_terrain.cu.
+(learned motor hook, flat floor): the wrapper over csrc/control_step_lanes.cu.
 
 Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
 substep_kernel.py (``make_control_step``, its ``pl.pallas_call``). One
-launch runs all ``frame_skip`` PD + physics substeps of every env. Three
-libraries: K1 (control_step.cu, one CUDA thread per env, the dense contact
-solve); the terrain build of control_step_terrain.cu that K2 and K3 share
-(16 contact slots, a slot-kind table, per-env terrain inputs; a group of
-lanes per env, its working set in shared memory, the Pallas kernel's
-Woodbury contact solve; launched by ``launch_plan``); and the motor build
-of control_step.cu (K1 plus the motor hook, its histories and count in and
-out).
+launch runs all ``frame_skip`` PD + physics substeps of every env, on a
+group of lanes per env with its working set in shared memory and the Pallas
+kernel's Woodbury contact solve, launched by ``launch_plan``. Three
+libraries built from that one source: "flat" (K1: 8 contact slots, the
+factorization reused over groups of R substeps), "terrain" (K2 and K3: 16
+contact slots, a slot-kind table, per-env terrain inputs staged in shared
+memory, R=1) and "motor" (K4: the flat floor at R=1 plus the motor hook,
+its histories and count in and out).
 
 ``pd_substeps_kernel`` has the signature of the plain version,
 physics/batched.py::pd_substeps_batched, and returns the same
@@ -48,9 +47,9 @@ from learninghumanoidwalking_tpu_torch.robots.motor import HIST_LEN, MotorState
 # build name, sources and preprocessor defines of each library; K2 and K3
 # share "terrain"
 LIBRARIES = {
-    "flat": ("lhw_control_step", ("control_step.cu",), ()),
-    "terrain": ("lhw_control_step_terrain", ("control_step_terrain.cu",), ()),
-    "motor": ("lhw_control_step_motor", ("control_step.cu",), ("-DLHW_MOTOR=1",)),
+    "flat": ("lhw_control_step_flat", ("control_step_lanes.cu",), ("-DLHW_TERRAIN=0",)),
+    "terrain": ("lhw_control_step_terrain", ("control_step_lanes.cu",), ()),
+    "motor": ("lhw_control_step_motor", ("control_step_lanes.cu",), ("-DLHW_TERRAIN=0", "-DLHW_MOTOR=1")),
 }
 # the library each kernel runs from
 LIBRARY_OF = {"K1": "flat", "K2": "terrain", "K3": "terrain", "K4": "motor"}
@@ -207,27 +206,25 @@ def build_tables(model: Model, lay: dict, hfield_shape: tuple | None = None) -> 
         grot = _quat_to_mat_np(h["geom_quat"][gi]).astype(np.float32)
         for corner in corners:
             it[lay["I_SLOTFOOT"] + slot] = foot_bodies.index(model.geom_body[gi])
-            if "I_SLOTKIND" in lay:  # the terrain build's kind table
-                it[lay["I_SLOTKIND"] + slot] = lay["SLOT_" + kinds[slot].upper()]
+            it[lay["I_SLOTKIND"] + slot] = lay["SLOT_" + kinds[slot].upper()]
             ft[lay["F_SGPOS"] + 3 * slot : lay["F_SGPOS"] + 3 * slot + 3] = h["geom_pos"][gi]
             ft[lay["F_SGROT"] + 9 * slot : lay["F_SGROT"] + 9 * slot + 9] = grot.reshape(-1)
             ft[lay["F_SCORN"] + 3 * slot : lay["F_SCORN"] + 3 * slot + 3] = corner * h["geom_size"][gi]
             ft[lay["F_MU"] + slot] = h["geom_friction"][gi]
             slot += 1
-    if "I_BORDER" in lay:  # the terrain build's box slots and tree tables
-        boxes = [c for c, k in enumerate(kinds) if k == "box"]
-        it[lay["I_NBOX"]] = len(boxes)
-        it[lay["I_BOXSLOT"] : lay["I_BOXSLOT"] + len(boxes)] = boxes
-        banc, levels, order = tree_tables(model)
-        it[lay["I_BANC"] : lay["I_BANC"] + nb] = banc
-        it[lay["I_NLEV"]] = len(levels) - 1
-        it[lay["I_LEVEL"] : lay["I_LEVEL"] + len(levels)] = levels
-        it[lay["I_BORDER"] : lay["I_BORDER"] + len(order)] = order
+    boxes = [c for c, k in enumerate(kinds) if k == "box"]
+    it[lay["I_NBOX"]] = len(boxes)
+    it[lay["I_BOXSLOT"] : lay["I_BOXSLOT"] + len(boxes)] = boxes
+    banc, levels, order = tree_tables(model)
+    it[lay["I_BANC"] : lay["I_BANC"] + nb] = banc
+    it[lay["I_NLEV"]] = len(levels) - 1
+    it[lay["I_LEVEL"] : lay["I_LEVEL"] + len(levels)] = levels
+    it[lay["I_BORDER"] : lay["I_BORDER"] + len(order)] = order
     return ft, it
 
 
 def tree_tables(model: Model) -> tuple[list[int], list[int], list[int]]:
-    """The terrain build's tree tables: per body the bit mask of its
+    """The kernels' tree tables: per body the bit mask of its
     ancestors and itself; bodies 1..nb-1 in order of depth, and where each
     depth starts in that order (depth d + 1 at levels[d], levels[-1] = nb - 1),
     so that a level's bodies depend only on earlier levels."""
@@ -259,8 +256,9 @@ def device_tables(model: Model, device: torch.device, lay: dict, hfield_shape=No
 # H100 shared memory: an SM's 228 KB, the most one block may use (227 KB),
 # and what the runtime keeps of it per block
 SMEM_SM, SMEM_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
-# terrain-build blocks an SM that launch_plan leaves room for (fastest in
-# a sweep of 1-4 on the H100, PERF.md)
+# blocks an SM that launch_plan leaves room for, in every library (fastest
+# for K2-K4 and within 2% of the fastest for K1 in a sweep of 1-4 on the
+# H100, ops/lane_sweep.py, PERF.md)
 BLOCKS_PER_SM = 2
 
 
@@ -273,20 +271,21 @@ def terrain_floats(model: Model, hfield_shape: tuple | None = None) -> int:
 
 
 def launch_plan(model: Model, batch: int, lay: dict, hfield_shape: tuple | None = None) -> dict:
-    """How the terrain build (layout ``lay``) launches ``batch`` envs: a
-    group of ``lanes`` (LHW_G) threads an env; ``envs_per_block`` envs a
-    block, as many as leave BLOCKS_PER_SM blocks an SM room in shared
-    memory (at most LHW_TPB threads); each env's region of ``env_floats``
-    floats (its fixed part SM_FIXED and its terrain; even, for its float64
-    arrays, and not a multiple of 32, so that the envs of a warp start in
-    different banks); ``smem_bytes`` of dynamic shared memory a block
-    beside ``static_bytes`` of tables; ``grid`` blocks, the last one ragged
-    (block k runs envs k * envs_per_block + group). Raises where the model
-    is past the build's caps or one env's region and the tables exceed the
-    SMEM_BLOCK bytes a block may use."""
+    """How the library of layout ``lay`` launches ``batch`` envs: a group of
+    ``lanes`` (LHW_G) threads an env; ``envs_per_block`` envs a block, as
+    many as leave BLOCKS_PER_SM blocks an SM room in shared memory
+    (at most LHW_TPB threads); each env's region of ``env_floats`` floats
+    (its fixed part SM_FIXED, which holds the lagged basis on the flat floor
+    and the motor histories in the motor build, and on terrain its terrain;
+    even, for its float64 arrays, and not a multiple of 32, so that the envs
+    of a warp start in different banks); ``smem_bytes`` of dynamic shared
+    memory a block beside ``static_bytes`` of tables; ``grid`` blocks, the
+    last one ragged (block k runs envs k * envs_per_block + group). Raises
+    where the model is past the build's caps or one env's region and the
+    tables exceed the SMEM_BLOCK bytes a block may use."""
     check_model(model, lay, hfield_shape)
     lanes = lay["LHW_G"]
-    stride = lay["SM_FIXED"] + terrain_floats(model, hfield_shape)
+    stride = lay["SM_FIXED"] + (terrain_floats(model, hfield_shape) if lay["LHW_TERRAIN"] else 0)
     stride += stride % 2
     stride += 2 * (stride % 32 == 0)
     static, env_bytes = 4 * (lay["N_FTAB"] + lay["N_ITAB"]), 4 * stride
@@ -324,11 +323,10 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
         lay = {names[k].decode(): values[k] for k in range(n)}
-        # before the stream, the motor build takes the motor arguments and
-        # the terrain build its launch plan (envs a block, env stride)
+        # before the stream, the motor build takes the motor arguments, and
+        # every build its launch plan (envs a block, env stride)
         own_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
-        if lay["LHW_TERRAIN"]:
-            own_args = [ctypes.c_int] * 2
+        own_args = own_args + [ctypes.c_int] * 2
         lib.lhw_control_step.argtypes = (
             [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
             + own_args + [ctypes.c_void_p]
@@ -452,12 +450,10 @@ def control_step_launch(
         motor_in = [weights.data_ptr(), motor["layers"], motor["hid0"], motor["hid1"],
                     motor["qd_hist"].data_ptr(), motor["ct_hist"].data_ptr(), count.data_ptr(),
                     *[x.data_ptr() for x in motor_out.values()]]
-    plan_args = []
-    if lay["LHW_TERRAIN"]:
-        if valid_reuse(frame_skip, reuse) != 1:
-            raise ValueError(f"{name} runs at R=1 (the reference pins it on terrain), got R={reuse}")
-        plan = launch_plan(model, batch, lay, hfield_shape)
-        plan_args = [plan["envs_per_block"], plan["env_floats"]]
+    if (lay["LHW_TERRAIN"] or lay.get("LHW_MOTOR")) and valid_reuse(frame_skip, reuse) != 1:
+        raise ValueError(f"{name} runs at R=1 (the reference pins it on terrain and with a motor), got R={reuse}")
+    plan = launch_plan(model, batch, lay, hfield_shape)
+    plan_args = [plan["envs_per_block"], plan["env_floats"]]
     nc = model.ncon
     out_rows = dict(
         qpos=model.nq, qvel=model.nv, qacc=model.nv, act_torque=model.nu, cforce=3 * nc, cdist=nc,
@@ -606,9 +602,8 @@ def flops_per_env_substep(model: Model, reuse: int, hfield: bool = False, motor:
     Woodbury form of the Pallas kernel
     (learninghumanoidwalking_tpu/ops/substep_kernel.py:765-856), which
     factors the 12x12 foot-basis Gram at refresh and a 12x12 inner system per
-    substep, as K2 and K3 run it. K1 and K4 solve the dense 3nc x 3nc system
-    of physics/batched.py, which takes more operations. Projected solves as in
-    physics/batched.py. Terrain adds per substep: the box SDF over all boxes
+    substep, as K1-K4 run it (K1 refreshing every R-th substep). Projected
+    solves as in physics/batched.py. Terrain adds per substep: the box SDF over all boxes
     for each box slot (the normal only for the winner), 5 bilinear samples
     of 4 nodes per heightfield slot and its normal, a frame from every
     tilted normal and 6-term contact rows (slot_coeffs_frame)."""

@@ -9,7 +9,7 @@ substep. The parameters are stacked over joints (a leading ``nu`` axis on
 every weight), so one batched product serves all joints.
 
 This is the plain version of kernel K4's motor hook
-(ops/csrc/control_step.cu, the ``LHW_MOTOR`` build): physics/batched.py
+(ops/csrc/control_step_lanes.cu, the ``LHW_MOTOR`` build): physics/batched.py
 calls ``motor_substep_torque_b`` on the PD torque of every substep.
 Parameters come from ``init_motor_params`` (an explicit torch.Generator:
 JAX's threefry stream cannot be reproduced) or from an ``.npz``; the

@@ -8,8 +8,8 @@ Pallas kernel, with triangular factorizations and solves at their
 triangular size and reductions counted. bench.py counts the Pallas kernel's
 triangular updates at full row length and no reductions, so the port's
 count may not exceed bench.py's and stays within 25% below it. A count of
-the dense 3nc x 3nc contact solve that K1 itself runs (more than 1.5x
-bench.py's) fails, so the bound cannot be inflated by K1's own algorithm.
+the dense 3nc x 3nc contact solve of the plain version (more than 1.5x
+bench.py's) fails, so the bound cannot be inflated by a denser algorithm.
 The terrain-box model (jvrc_step: 20 boxes, 16 slots) is counted at R=1, as
 the reference and K2 run it.
 
@@ -17,14 +17,22 @@ The motor term of the count (K4) is held to the widths of the default
 motor nets (50 -> 32 -> 32 -> 1 per joint, 12 joints): bench.py traces no
 motor kernel, so there is no traced count to compare it with.
 
-The terrain build (K2, K3) launches a group of lanes per env with its
-working set in shared memory: its launch plan must give every env exactly
-one group and stay within a block's 232,448 B of shared memory, and its
-tree tables must order every body after its parent.
+Every build (K1 flat, K2/K3 terrain, K4 motor) launches a group of lanes
+per env with its working set in shared memory: its launch plan must give
+every env exactly one group and stay within a block's 232,448 B of shared
+memory (the motor build's region holding the motor histories), and its
+tree tables must order every body after its parent. Every kernel's library
+builds from a source that exists. The layouts these tests plan with are
+held to what the source's builds report (run through the C++
+preprocessor), and the rejected designs of K4's nets that ops/net_sweep.py
+times still apply to the source and change only the motor build.
 """
 
 import dataclasses
 import importlib.util
+import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import pytest
@@ -33,6 +41,7 @@ import torch
 from learninghumanoidwalking_tpu.models import jvrc as jax_jvrc
 from learninghumanoidwalking_tpu.physics.spec import lower as jax_lower
 from learninghumanoidwalking_tpu_torch.models import jvrc
+from learninghumanoidwalking_tpu_torch.ops import net_sweep
 from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.robots.motor import init_motor_params
@@ -106,12 +115,14 @@ def test_motor_blocks_layout():
         assert torch.equal(blk["weights"], torch.cat(order))
 
 
-# the caps the three builds report (csrc/control_step.cu: LHW_TERRAIN 0 / 1,
-# LHW_MOTOR 1)
+# the caps and launch layout the three builds report (csrc/control_step_lanes.cu:
+# LHW_TERRAIN 0 / 1, LHW_MOTOR 1; lanes per env, most threads a block, table
+# sizes, the floats of an env's fixed shared region, the motor histories'
+# offsets in it)
 CAPS = dict(MAX_B=16, MAX_V=20, MAX_Q=21, MAX_U=16, MAX_F=2)
-FLAT = dict(CAPS, LHW_TERRAIN=0, MAX_C=8, MAX_T=0, MAX_HF=0)
+FLAT = dict(CAPS, LHW_TERRAIN=0, MAX_C=8, MAX_T=0, MAX_HF=0, LHW_G=16, LHW_TPB=192, N_FTAB=620, N_ITAB=596, SM_FIXED=1940)
 TERRAIN = dict(CAPS, LHW_TERRAIN=1, MAX_C=16, MAX_T=32, MAX_HF=1024)
-MOTOR = dict(FLAT, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3)
+MOTOR = dict(FLAT, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3, SM_FIXED=2740, E_QDH=1940, E_CTH=2340)
 
 
 def test_check_model_takes_terrain_and_refuses_motor_models():
@@ -224,3 +235,98 @@ def test_terrain_tree_tables(terrain_models):
         assert {b for b in range(nb) if (banc[i] >> b) & 1} == chain
     # JVRC-1: the pelvis, then the waist and the two 6-body leg chains
     assert len(levels) - 1 == 7
+
+
+@pytest.mark.parametrize("batch", [1, 37, 4096, 32768])
+@pytest.mark.parametrize("build", ["flat", "motor"])
+def test_flat_and_motor_launch_plan_covers_every_env_once(build, batch):
+    """K1 and K4 launch like the terrain build, with no terrain in the
+    region: every env exactly once, no block without an env, within the
+    block's threads and shared memory, and two blocks an SM (or
+    BLOCKS_PER_SM) where a block holds more than one env, on jvrc_walk's
+    model; the motor build's region holds its two histories."""
+    model = lower(jvrc.jvrc_spec(), device="cpu")
+    lay = {"flat": FLAT, "motor": MOTOR}[build]
+    if build == "motor":
+        assert lay["E_QDH"] + 25 * 16 == lay["E_CTH"] and lay["E_CTH"] + 25 * 16 <= lay["SM_FIXED"]
+    for lanes in (1, 2, 4, 8, 16, 32):
+        plan = sk.launch_plan(model, batch, dict(lay, LHW_G=lanes))
+        epb = plan["envs_per_block"]
+        envs = [blk * epb + grp for blk in range(plan["grid"]) for grp in range(epb)]
+        assert [e for e in envs if e < batch] == list(range(batch))
+        assert (plan["grid"] - 1) * epb < batch
+        assert plan["lanes"] == lanes and plan["threads"] == epb * lanes <= 192
+        assert plan["env_floats"] % 2 == 0 and plan["env_floats"] % 32 != 0
+        assert lay["SM_FIXED"] <= plan["env_floats"] <= lay["SM_FIXED"] + 3
+        assert plan["smem_bytes"] == 4 * epb * plan["env_floats"]
+        assert plan["static_bytes"] == 4 * (620 + 596)
+        assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
+        if epb > 1:
+            assert max(2, sk.BLOCKS_PER_SM) * (plan["static_bytes"] + plan["smem_bytes"] + 1024) <= 233472
+
+
+def test_every_kernel_library_source_exists():
+    """Every kernel routes to a library, and every library builds from
+    sources in ops/csrc/ (all from the one lane source)."""
+    csrc = Path(sk.__file__).resolve().parent / "csrc"
+    assert set(sk.LIBRARY_OF) == {"K1", "K2", "K3", "K4"} and set(sk.LIBRARY_OF.values()) <= set(sk.LIBRARIES)
+    for kernel, library in sk.LIBRARY_OF.items():
+        _, sources, defines = sk.LIBRARIES[library]
+        assert sources and all((csrc / src).is_file() for src in sources), (kernel, sources)
+        assert ("-DLHW_TERRAIN=0" in defines) == (library != "terrain") and ("-DLHW_MOTOR=1" in defines) == (library == "motor")
+    assert {src for _, sources, _ in sk.LIBRARIES.values() for src in sources} == {"control_step_lanes.cu"}
+
+
+CSRC = Path(sk.__file__).resolve().parent / "csrc"
+
+
+def _preprocess(source: Path, defines: tuple, tmp_path: Path) -> str:
+    """``source`` through the C++ preprocessor with ``defines``, the csrc
+    headers and an empty cuda_runtime.h on the include path."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ preprocessor on PATH")
+    (tmp_path / "cuda_runtime.h").write_text("")
+    cmd = [cxx, "-x", "c++", "-std=c++20", "-E", "-P", *defines, f"-I{tmp_path}", f"-I{CSRC}", str(source)]
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+
+
+@pytest.mark.parametrize("build", ["flat", "terrain", "motor"])
+def test_layout_dicts_match_the_source(build, tmp_path):
+    """The hand-written layouts above (FLAT, TERRAIN_PLAN, MOTOR) are what
+    each build of csrc/control_step_lanes.cu reports through
+    lhw_control_step_layout: the source is run through the C++ preprocessor
+    with its library's defines (cuda_runtime.h an empty stub) and the
+    layout's names and integer expressions read from the result, so an edit
+    of the source's regions cannot leave the tests' numbers behind."""
+    _, sources, defines = sk.LIBRARIES[build]
+    text = _preprocess(CSRC / sources[0], defines, tmp_path)
+    names = re.findall(r'"(\w+)"', re.search(r"keys\[\] = \{(.*?)\};", text).group(1))
+    exprs = re.search(r"vals\[\] = \{(.*?)\};", text).group(1).split(",")[:-1]
+    assert len(names) == len(exprs) and all(re.fullmatch(r"[\d\s+*/()&~-]+", e) for e in exprs)
+    layout = dict(zip(names, (eval(e.replace("/", "//")) for e in exprs)))  # non-negative C integer arithmetic
+    expected = {"flat": FLAT, "terrain": TERRAIN_PLAN, "motor": MOTOR}[build]
+    assert {k: layout.get(k) for k in expected} == expected
+
+
+@pytest.mark.parametrize("name", ["unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"])
+def test_net_variants_apply_to_the_lane_source(name, tmp_path):
+    """ops/net_sweep.py's rejected designs of K4's nets still apply to the
+    lane source (each hunk of their diffs found exactly once) and change the
+    motor build only: the flat and terrain builds preprocess to the same
+    text as the kept source's."""
+    variants = net_sweep.variant_sources(CSRC)
+    assert set(variants) == {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"}
+    kept_path = CSRC / "control_step_lanes.cu"
+    text = variants[name]
+    assert text != kept_path.read_text()
+    marker = {"units_in_registers": "float acc[HPL];", "block_staged": "stage_joint_weights(wbuf"}.get(name, f"#pragma unroll {name[6:]}\n")
+    assert marker in text
+    path = tmp_path / "variant.cu"
+    path.write_text(text)
+    for build in ("flat", "terrain", "motor"):
+        defines = sk.LIBRARIES[build][2]
+        same = _preprocess(path, defines, tmp_path) == _preprocess(kept_path, defines, tmp_path)
+        assert same == (build != "motor"), build
+    # block_staged's two buffers of one joint's weights: 2 x 2722 floats at the default widths
+    assert net_sweep.stage_floats(sk.motor_dims(_motor())) == 2 * (1 + 50 * 32 + 32 + 32 * 32 + 32 + 32 + 1)
