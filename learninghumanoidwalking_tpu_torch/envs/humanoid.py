@@ -169,6 +169,13 @@ class HumanoidEnv(Env):
             state = state + noise * self.obs_noise_scale
         return state
 
+    def _base_obs(self, physics, task, draws) -> torch.Tensor:
+        """The robot state followed by the task's external observations."""
+        state = self._robot_state(physics, draws)
+        if self.num_external_obs == 0:
+            return state
+        return torch.cat([state, self._external_obs(task)], dim=-1)
+
     # ------------------------------------------------- domain randomization
 
     def _sample_dynamics(self, draws, n: int) -> DynParams:
@@ -228,7 +235,7 @@ class HumanoidEnv(Env):
     def _reset_post(self, physics, dyn, task, iteration, draws) -> EnvState:
         m = self.model
         n, dev = physics.qpos.shape[0], self.device
-        base_obs = torch.cat([self._robot_state(physics, draws), self._external_obs(task)], dim=-1)
+        base_obs = self._base_obs(physics, task, draws)
         obs_history = torch.zeros((n, self.history_len, self.base_obs_len), device=dev)
         obs_history[:, 0] = base_obs
         if iteration is None:
@@ -289,7 +296,7 @@ class HumanoidEnv(Env):
         components = torch.nan_to_num(components)
         done = self._done(physics) | ~finite
 
-        base_obs = torch.nan_to_num(torch.cat([self._robot_state(physics, draws), self._external_obs(task)], dim=-1))
+        base_obs = torch.nan_to_num(self._base_obs(physics, task, draws))
         obs_history, obs = self.stack_history(state.obs_history, base_obs)
 
         dyn = state.dyn
@@ -330,6 +337,13 @@ class HumanoidEnv(Env):
         )
 
     # ----------------------------------------------------- hooks (override)
+
+    def _task_reset(self, draws, n: int, iteration, physics):
+        """The task state of ``n`` fresh envs; none by default."""
+        return None
+
+    def _task_step(self, draws, task, physics):
+        return task
 
     def _terrain(self, task):
         """The envs' terrain (engine.Terrain) for a task state; flat by default."""

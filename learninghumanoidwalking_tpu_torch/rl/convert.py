@@ -1,10 +1,11 @@
 """Carry the JAX package's actor / critic parameters, RunningNorm
-statistics and motor-net parameters into the port.
+statistics, motor-net parameters and whole checkpoints into the port.
 
 The JAX params arrive as numpy arrays flattened from flax's nested dict,
 keyed by "/"-joined paths such as ``params/MLPTrunk_0/Dense_1/kernel``.
 Flax Dense stores ``kernel`` as (in, out); nn.Linear.weight is (out, in), so
-every kernel is transposed.
+every kernel is transposed (Adam's moments too, which have the params'
+layout).
 """
 
 from __future__ import annotations
@@ -77,3 +78,41 @@ def motor_params(np_params: dict, device="cpu") -> dict:
     out = {k: torch.as_tensor(np.array(v, np.float32), device=device) for k, v in np_params.items() if k != "n_layers"}
     out["n_layers"] = int(np_params["n_layers"])
     return out
+
+
+def _adam_from_optax(opt_state, to_state_dict) -> dict:
+    """An Adam state for rl/checkpoint.py from an optax state built as the
+    JAX trainer builds it, apply_if_finite(chain(clip_by_global_norm,
+    adam)): its Adam moments (keyed and laid out as the state_dict),
+    count and notfinite_count."""
+    adam = opt_state.inner_state[1][0]
+    flat_mu, flat_nu = flatten_params(adam.mu), flatten_params(adam.nu)
+    # a fixed log_std (no params/log_std) is a buffer, with no moments
+    keep = lambda sd, flat: {k: v for k, v in sd.items() if k != "log_std" or "params/log_std" in flat}
+    return dict(
+        mu=keep(to_state_dict(flat_mu), flat_mu),
+        nu=keep(to_state_dict(flat_nu), flat_nu),
+        count=torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32),
+        notfinite_count=torch.tensor(int(np.asarray(opt_state.notfinite_count)), dtype=torch.int32),
+    )
+
+
+def checkpoint_from_jax(tree: dict, action_dim: int, init_std: float = 0.223) -> dict:
+    """A port checkpoint (rl/checkpoint.py's persisted state) from the JAX
+    Checkpointer's persisted tree, fetched as numpy by the caller:
+    ``actor_params`` / ``critic_params`` (flax), ``actor_opt`` /
+    ``critic_opt`` (optax apply_if_finite states: Adam's mu, nu and count,
+    and notfinite_count), ``norm`` (mean, var, count) and ``iteration``.
+    The JAX PRNG key has no torch counterpart: the checkpoint keeps no
+    generator state, and a trainer restoring it keeps its own generator."""
+    to_actor = lambda flat: actor_state_dict(flat, action_dim, init_std)
+    norm = tree["norm"]
+    return dict(
+        actor=to_actor(flatten_params(tree["actor_params"])),
+        critic=critic_state_dict(flatten_params(tree["critic_params"])),
+        actor_opt=_adam_from_optax(tree["actor_opt"], to_actor),
+        critic_opt=_adam_from_optax(tree["critic_opt"], critic_state_dict),
+        norm={k: torch.as_tensor(np.array(getattr(norm, k), np.float32)) for k in ("mean", "var", "count")},
+        generator=None,
+        iteration=int(np.asarray(tree["iteration"])),
+    )

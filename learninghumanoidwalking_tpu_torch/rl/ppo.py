@@ -4,19 +4,23 @@ Same iteration as the JAX trainer: a rollout of ``rollout_len`` steps over
 the persistent env batch with a rotated per-iteration reset pool and a
 carried V(s_t), GAE, batch-normalized advantages, then ``epochs`` passes of
 minibatched updates (clipped surrogate, value MSE, entropy bonus, mirror
-loss), each network with its own Adam after global-norm clipping and a
-skip on non-finite gradients (optax's apply_if_finite, 100 consecutive
-skips at most). The JAX ``scan``s are Python loops; the
-trainer state lives on ``device``.
+loss, and the imitation loss through a frozen expert), each network with
+its own Adam after global-norm clipping and a skip on non-finite gradients
+(optax's apply_if_finite, 100 consecutive skips at most). ``train``
+evaluates the deterministic policy every ``eval_freq`` iterations and at
+the last one, checkpoints each evaluation (marking the best), logs, and can
+trace iterations 2-4 with torch.profiler. The JAX ``scan``s are Python
+loops; the trainer state lives on ``device``.
 
-Not ported yet: recurrent policies, imitation, eval rollouts, checkpoints,
-the logger and the profiler hook.
+Not ported yet: recurrent policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -24,6 +28,7 @@ from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
 from learninghumanoidwalking_tpu_torch.physics.model import tree_map
 from learninghumanoidwalking_tpu_torch.rl import networks
 from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
+from learninghumanoidwalking_tpu_torch.rl.imitation import imitation_loss
 from learninghumanoidwalking_tpu_torch.rl.mirror import obs_symmetry_matrix, symmetry_matrix
 from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm, init_norm, update_norm
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
@@ -54,6 +59,8 @@ class PPOConfig:
     max_grad_norm: float = 0.5
     mirror_coeff: float = 0.4
     use_mirror: bool = True
+    imitate_coeff: float = 0.3
+    eval_freq: int = 100
     input_norm_iters: int = 5
     seed: int = 0
     # "slice": contiguous minibatches of the (time-major, env-minor) batch
@@ -144,9 +151,13 @@ def _tree_where(pred: torch.Tensor, a, b):
 
 
 class PPO:
-    """PPO trainer bound to one env, on ``device``; randomness from ``draws``."""
+    """PPO trainer bound to one env, on ``device``; randomness from ``draws``.
+    With ``imitation_projector`` (an env's imitation_projector()) and
+    ``expert`` (a frozen policy: observations -> action means, as
+    rl/eval.py::load_expert gives), the loss adds the imitation term."""
 
-    def __init__(self, env: Env, config: PPOConfig, device: str | torch.device = "cuda", draws: Draws | None = None):
+    def __init__(self, env: Env, config: PPOConfig, device: str | torch.device = "cuda", draws: Draws | None = None,
+                 imitation_projector: Callable | None = None, expert: Callable | None = None):
         self.env = env
         self.cfg = config
         self.device = torch.device(device)
@@ -163,10 +174,22 @@ class PPO:
                 obs_symmetry_matrix(env.mirrored_obs, env.clock_inds, env.history_len), device=self.device
             )
             self.act_mirror = torch.as_tensor(symmetry_matrix(env.mirrored_acts), device=self.device)
+        if (imitation_projector is None) != (expert is None):
+            raise ValueError("imitation needs both an imitation projector and an expert")
+        self.imitation_projector = imitation_projector
+        self.expert = expert
 
     # ------------------------------------------------------------------ init
 
     def init_state(self, gen: torch.Generator | None = None) -> TrainState:
+        """Networks, optimizers and norm (init_networks) and a fresh env batch."""
+        ts = self.init_networks(gen)
+        return dataclasses.replace(ts, env_state=self.env.reset_batch(self.cfg.num_envs, self.draws))
+
+    def init_networks(self, gen: torch.Generator | None = None) -> TrainState:
+        """A TrainState without an env batch (``env_state`` None): the
+        networks from ``gen`` (default: a CPU generator seeded with the
+        config's seed), their optimizers and the observation norm."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device="cpu")
@@ -179,14 +202,13 @@ class PPO:
             norm = init_norm(None, self.env.obs_mean, self.env.obs_std, device=self.device)
         else:
             norm = init_norm((self.env.obs_size,), device=self.device)
-        env_state = self.env.reset_batch(cfg.num_envs, self.draws)
         return TrainState(
             actor=actor,
             critic=critic,
             actor_opt=Adam(list(actor.parameters()), cfg.lr, cfg.eps, cfg.max_grad_norm),
             critic_opt=Adam(list(critic.parameters()), cfg.lr, cfg.eps, cfg.max_grad_norm),
             norm=norm,
-            env_state=env_state,
+            env_state=None,
             iteration=0,
         )
 
@@ -289,13 +311,23 @@ class PPO:
         else:
             mirror_loss = torch.zeros((), device=obs.device)
 
+        # imitation through the frozen expert (JAX rl/ppo.py:444-450)
+        if self.imitation_projector is not None:
+            query = self.imitation_projector(obs)
+            with torch.no_grad():
+                expert_mean = self.expert(query.expert_obs)
+            imit_loss = imitation_loss(query, mean, expert_mean)
+        else:
+            imit_loss = torch.zeros((), device=obs.device)
+
         log_ratio = log_probs - old_log_probs
         approx_kl = torch.mean((ratio - 1.0) - log_ratio)
 
-        total = actor_loss + cfg.mirror_coeff * mirror_loss - cfg.entropy_coeff * entropy + critic_loss
+        total = (actor_loss + cfg.mirror_coeff * mirror_loss + cfg.imitate_coeff * imit_loss
+                 - cfg.entropy_coeff * entropy + critic_loss)
         aux = dict(
             actor_loss=actor_loss, critic_loss=critic_loss, entropy=entropy, mirror_loss=mirror_loss,
-            approx_kl=approx_kl, clip_fraction=clip_fraction,
+            imitation_loss=imit_loss, approx_kl=approx_kl, clip_fraction=clip_fraction,
         )
         return total, aux
 
@@ -342,41 +374,147 @@ class PPO:
         env_state, traj = self._rollout(ts, deterministic=False)
         return dataclasses.replace(ts, env_state=env_state, norm=update_norm(ts.norm, traj["obs"]))
 
+    @torch.no_grad()
+    def _eval_rollout(self, ts: TrainState, draws: Draws) -> dict:
+        """Deterministic evaluation from fresh resets: ``num_envs`` envs with
+        their own reset pool for ``max_traj_len`` steps, episodes truncated
+        at ``max_traj_len``, unfinished ones counted. Mean episode reward and
+        length (0-d tensors)."""
+        cfg = self.cfg
+        n, dev = cfg.num_envs, self.device
+        env_state = self.env.reset_batch(n, draws, ts.iteration)
+        pool = self.env.reset_batch(n, draws, ts.iteration)
+        ep_ret = torch.zeros(n, device=dev)
+        ep_len = torch.zeros(n, device=dev)
+        ret_acc, len_acc, cnt = (torch.zeros((), device=dev) for _ in range(3))
+        for _ in range(cfg.max_traj_len):
+            mean, _ = self._policy(ts.actor, ts.norm, env_state.obs)
+            stepped = self.env.step_batch(env_state, mean, draws)
+            terminated = stepped.done
+            done = terminated | ((stepped.steps >= cfg.max_traj_len) & ~terminated)
+            ep_ret = ep_ret + stepped.reward
+            ep_len = ep_len + 1.0
+            ret_acc = ret_acc + torch.sum(torch.where(done, ep_ret, 0.0))
+            len_acc = len_acc + torch.sum(torch.where(done, ep_len, 0.0))
+            cnt = cnt + torch.sum(done.to(torch.float32))
+            ep_ret = torch.where(done, 0.0, ep_ret)
+            ep_len = torch.where(done, 0.0, ep_len)
+            env_state = _tree_where(done, dataclasses.replace(pool, iteration=stepped.iteration), stepped)
+        ret_acc = ret_acc + torch.sum(ep_ret)
+        len_acc = len_acc + torch.sum(ep_len)
+        cnt = cnt + torch.sum((ep_len > 0).to(torch.float32))
+        return dict(eval_mean_reward=ret_acc / torch.clamp_min(cnt, 1.0),
+                    eval_mean_episode_length=len_acc / torch.clamp_min(cnt, 1.0))
+
+    def eval_draws(self, itr: int) -> Draws:
+        """The draws of the evaluation at loop iteration ``itr``: a generator
+        of its own (the JAX trainer folds ``itr`` into its key), so that
+        evaluating leaves the training stream as it was."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.cfg.seed + 1) * 1_000_003 + itr)
+        return Draws(gen)
+
     # ----------------------------------------------------------------- train
 
     def warmup_iterations(self) -> int:
         """Obs-norm warmup iterations ``train`` runs (running-norm envs only)."""
         return self.cfg.input_norm_iters if self.env.obs_mean is None else 0
 
-    def train(self, n_itr: int | None = None, ts: TrainState | None = None, verbose: bool = True, on_iteration=None):
+    def train(self, n_itr: int | None = None, ts: TrainState | None = None, verbose: bool = True, on_iteration=None,
+              logger=None, checkpointer=None, profile_dir: str | Path | None = None, evaluate: bool | None = None):
         """Warmup, then ``n_itr`` iterations of sampling + optimization.
-        Returns (final TrainState, per-iteration metrics). Each iteration's
-        times are taken after a device synchronization."""
+        Every ``eval_freq`` iterations and at the last one, a deterministic
+        evaluation (_eval_rollout), logged and, with a ``checkpointer``,
+        saved as checkpoint ``itr`` (the best by eval reward also as
+        best.pt). ``evaluate`` (default: when there is a logger, a
+        checkpointer or verbose output to take the result) turns the
+        evaluations on or off; they do not change the training. With ``profile_dir``, torch.profiler traces iterations 2-4
+        (or 2 to the last) on the CPU and the card and writes a Chrome trace
+        there (trace.json). Returns (final TrainState, per-iteration
+        metrics); ``on_iteration(itr, metrics)`` sees each iteration's.
+        Times are taken after a device synchronization."""
         cfg = self.cfg
         n_itr = cfg.n_itr if n_itr is None else n_itr
+        if evaluate is None:
+            evaluate = logger is not None or checkpointer is not None or verbose
         ts = self.init_state() if ts is None else ts
         for _ in range(self.warmup_iterations()):
             ts = self._warmup_iteration(ts)
         history = []
+        start = time.time()
+        best_eval = -float("inf")
+        prof = None
         for itr in range(n_itr):
-            t0 = time.time()
-            ts, batch, roll = self._sample_iteration(ts)
-            roll = {k: float(v) for k, v in roll.items()}
-            t1 = time.time()
-            ts, aux = self._optimize_iteration(ts, batch)
-            aux = {k: float(v) for k, v in aux.items()}
-            t2 = time.time()
-            metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
-                       "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9)}
+            if profile_dir is not None and itr == 2:
+                prof = _start_profiler(self.device)
+            with torch.profiler.record_function("ppo.iteration"):
+                t0 = time.time()
+                with torch.profiler.record_function("ppo.sample"):
+                    ts, batch, roll = self._sample_iteration(ts)
+                    roll = {k: float(v) for k, v in roll.items()}
+                t1 = time.time()
+                with torch.profiler.record_function("ppo.optimize"):
+                    ts, aux = self._optimize_iteration(ts, batch)
+                    aux = {k: float(v) for k, v in aux.items()}
+                t2 = time.time()
+                del batch
+                fps = cfg.batch_size / max(t2 - t0, 1e-9)
+                metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
+                           "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9), "fps": fps}
+                if verbose:
+                    print(
+                        f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "
+                        f"ep_len {metrics['mean_episode_length']:.1f} | actor {metrics['actor_loss']:.4f} | "
+                        f"critic {metrics['critic_loss']:.4f} | kl {metrics['approx_kl']:.4f} | "
+                        f"sample {metrics['sample_env_steps_per_s']:,.0f} env-steps/s | optimize {t2 - t1:.2f} s",
+                        flush=True,
+                    )
+                if logger is not None:
+                    logger.log_training(itr, metrics)
+                    logger.log_timing(itr, fps=fps, sample_time=t1 - t0, optimize_time=t2 - t1,
+                                      total_elapsed=time.time() - start)
+                if evaluate and (itr % cfg.eval_freq == 0 or itr == n_itr - 1):
+                    with torch.profiler.record_function("ppo.eval"):
+                        t3 = time.time()
+                        evals = {k: float(v) for k, v in self._eval_rollout(ts, self.eval_draws(itr)).items()}
+                        metrics.update(evals, eval_time=time.time() - t3)
+                    if verbose:
+                        print(f"  eval @ {itr}: reward {evals['eval_mean_reward']:.2f} "
+                              f"len {evals['eval_mean_episode_length']:.1f}", flush=True)
+                    if logger is not None:
+                        logger.log_eval(itr, evals)
+                    if checkpointer is not None:
+                        t4 = time.time()
+                        is_best = evals["eval_mean_reward"] > best_eval
+                        best_eval = max(best_eval, evals["eval_mean_reward"])
+                        checkpointer.save(itr, ts, self.draws, metrics=evals, is_best=is_best)
+                        metrics["checkpoint_time"] = time.time() - t4
             history.append(metrics)
-            if verbose:
-                print(
-                    f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "
-                    f"ep_len {metrics['mean_episode_length']:.1f} | actor {metrics['actor_loss']:.4f} | "
-                    f"critic {metrics['critic_loss']:.4f} | kl {metrics['approx_kl']:.4f} | "
-                    f"sample {metrics['sample_env_steps_per_s']:,.0f} env-steps/s | optimize {t2 - t1:.2f} s",
-                    flush=True,
-                )
             if on_iteration is not None:
                 on_iteration(itr, metrics)
+            if prof is not None and (itr == 4 or itr == n_itr - 1):
+                path = _stop_profiler(prof, profile_dir, self.device)
+                prof = None
+                if verbose:
+                    print(f"profiler trace (iterations 2-{itr}) written to {path}", flush=True)
         return ts, history
+
+
+def _start_profiler(device: torch.device):
+    """torch.profiler over the CPU and, on the card, CUDA activity."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir, device: torch.device) -> Path:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path = Path(profile_dir) / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return path

@@ -35,6 +35,11 @@ class Configuration:
             raise AttributeError(name)
         return self._data.get(name, None)
 
+    def to_dict(self) -> dict:
+        """The plain dict (nested Configurations unwrapped)."""
+        unwrap = lambda v: v.to_dict() if isinstance(v, Configuration) else [unwrap(x) for x in v] if isinstance(v, list) else v
+        return {k: unwrap(v) for k, v in self._data.items()}
+
     def __repr__(self) -> str:
         return f"Configuration({self._data!r})"
 

@@ -68,3 +68,34 @@ class InjectedDraws(Draws):
 
     def permutation(self, name, n, device):
         return self._get(name, (n,), device).to(torch.int64)
+
+
+class EnvDraws(Draws):
+    """One generator per env: row i of every draw (leading axis the batch)
+    comes from generator i, so that env i's numbers do not depend on the
+    batch it runs in (rl/eval.py seeds episode i with 1000 + i)."""
+
+    def __init__(self, gens: list):
+        self.gens = gens
+
+    def _rows(self, shape, fn) -> torch.Tensor:
+        if shape[0] != len(self.gens):
+            raise ValueError(f"a draw of shape {tuple(shape)} for {len(self.gens)} envs")
+        return torch.stack([fn(tuple(shape[1:]), g) for g in self.gens])
+
+    def uniform(self, name, shape, lo, hi, device):
+        return self._rows(shape, lambda s, g: lo + (hi - lo) * torch.rand(s, generator=g, device=device))
+
+    def randint(self, name, shape, lo, hi, device):
+        return self._rows(shape, lambda s, g: torch.randint(lo, hi, s, generator=g, device=device))
+
+    def normal(self, name, shape, device):
+        return self._rows(shape, lambda s, g: torch.randn(s, generator=g, device=device))
+
+    def choice(self, name, shape, values, p, device):
+        probs = torch.as_tensor(p, dtype=torch.float32, device=device)
+        vals = torch.as_tensor(values, device=device)
+        return self._rows(shape, lambda s, g: vals[torch.multinomial(probs, max(1, int(np.prod(s))), replacement=True, generator=g)].reshape(s))
+
+    def permutation(self, name, n, device):
+        raise NotImplementedError("EnvDraws draws per env; a permutation is not per env")

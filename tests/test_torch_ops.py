@@ -38,9 +38,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from learninghumanoidwalking_tpu.models import h1 as jax_h1
 from learninghumanoidwalking_tpu.models import jvrc as jax_jvrc
 from learninghumanoidwalking_tpu.physics.spec import lower as jax_lower
-from learninghumanoidwalking_tpu_torch.models import jvrc
+from learninghumanoidwalking_tpu_torch.models import h1, jvrc
 from learninghumanoidwalking_tpu_torch.ops import net_sweep
 from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
@@ -60,6 +61,14 @@ def _bench():
 def test_flop_count_is_the_woodbury_form(nterrain, reuse):
     traced = _bench()._kernel_flops_per_env_substep(jax_lower(jax_jvrc.jvrc_spec(nterrain=nterrain)), reuse)
     counted = sk.flops_per_env_substep(lower(jvrc.jvrc_spec(nterrain=nterrain), device="cpu"), reuse)
+    assert 0.75 * traced <= counted <= traced, (counted, traced)
+
+
+@pytest.mark.parametrize("reuse", [1, 5])
+def test_h1_flop_count_is_the_woodbury_form(reuse):
+    """H1 (nv 16, 8 slots): the same bracket as JVRC-1's."""
+    traced = _bench()._kernel_flops_per_env_substep(jax_lower(jax_h1.h1_spec()), reuse)
+    counted = sk.flops_per_env_substep(lower(h1.h1_spec(), device="cpu"), reuse)
     assert 0.75 * traced <= counted <= traced, (counted, traced)
 
 
@@ -330,3 +339,25 @@ def test_net_variants_apply_to_the_lane_source(name, tmp_path):
         assert same == (build != "motor"), build
     # block_staged's two buffers of one joint's weights: 2 x 2722 floats at the default widths
     assert net_sweep.stage_floats(sk.motor_dims(_motor())) == 2 * (1 + 50 * 32 + 32 + 32 * 32 + 32 + 32 + 1)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4096, 32768])
+def test_h1_runs_in_the_flat_build(batch):
+    """H1 fits K1's caps (nbody 13, nv 16, nq 17, nu 10, 8 slots on 2 foot
+    bodies) with no new build: check_model takes it, the launch plan covers
+    every env once with 12 envs a block (2731 blocks at B=32768), and its
+    bytes per env are 2204."""
+    model = lower(h1.h1_spec(), device="cpu")
+    assert (model.nbody, model.nv, model.nq, model.nu, model.ncon) == (13, 16, 17, 10, 8)
+    sk.check_model(model, FLAT)
+    plan = sk.launch_plan(model, batch, FLAT)
+    epb = plan["envs_per_block"]
+    assert epb == min(12, batch) and plan["grid"] == -(-batch // epb)
+    envs = [blk * epb + grp for blk in range(plan["grid"]) for grp in range(epb)]
+    assert [e for e in envs if e < batch] == list(range(batch))
+    assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
+    assert sk.bytes_per_launch(model, 1) == 2204
+    if batch == 32768:
+        assert plan["grid"] == 2731
+        flops = sk.flops_per_env_substep(model, 5) * 25 * batch
+        assert abs(1e3 * max(flops / 67e12, sk.bytes_per_launch(model, batch) / 3.35e12) - 0.324) < 0.001

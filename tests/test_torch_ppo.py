@@ -6,7 +6,10 @@ update is replayed from the JAX key schedule. Networks run in float32 on
 both sides (TF32 off). Tolerances: GAE and the Welford merge 1e-6 (same
 f32 recurrences); network outputs 1e-5 absolute; loss components and
 gradients 1e-4 relative to each quantity's largest magnitude; parameters
-after one update 1e-4 relative (two Adam steps on those gradients).
+after one update 1e-4 relative (two Adam steps on those gradients). The
+imitation loss 1e-6 (the same masked MSE on the same float32 inputs); a
+converted JAX checkpoint's policy 1e-5 absolute and its next Adam step
+1e-6 relative, as the Adam test.
 """
 
 import numpy as np
@@ -258,3 +261,147 @@ def test_adam_skips_nonfinite_steps_as_optax_does():
     # the overflow step was applied, the 101st NaN step too
     assert int(adam.count) == 4 + 1 + 2 + 1 + 3
     assert np.isnan(np.asarray(j_params[0])).all()
+
+
+def test_imitation_loss_matches_jax():
+    from learninghumanoidwalking_tpu.rl import imitation as jimitation
+    from learninghumanoidwalking_tpu_torch.rl import imitation
+
+    rng = np.random.default_rng(8)
+    n = 40
+    student = rng.standard_normal((n, 10)).astype(np.float32)
+    expert = rng.standard_normal((n, 6)).astype(np.float32)
+    mask = (rng.random(n) < 0.6).astype(np.float32)
+    idx = (0, 2, 3, 5, 7, 9)
+    ref = jimitation.imitation_loss(jimitation.ImitationQuery(jnp.zeros((n, 3)), jnp.asarray(mask), idx),
+                                    jnp.asarray(student), jnp.asarray(expert))
+    got = imitation.imitation_loss(imitation.ImitationQuery(torch.zeros((n, 3)), torch.as_tensor(mask), idx),
+                                   torch.as_tensor(student), torch.as_tensor(expert))
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-6)
+    empty = imitation.imitation_loss(imitation.ImitationQuery(None, torch.zeros(n), idx), torch.as_tensor(student),
+                                     torch.as_tensor(expert))
+    assert empty.item() == 0.0
+
+
+def test_loss_with_an_h1_walk_expert_matches_jax():
+    """_loss_fn on h1_walk with a frozen expert (its own parameters and
+    observation norm) through the env's identity projector: the loss, its
+    imitation term and the gradients, as test_loss_and_gradients_match_jax."""
+    from learninghumanoidwalking_tpu.envs.h1_walk import H1WalkEnv as JaxH1WalkEnv
+    from learninghumanoidwalking_tpu_torch.envs.h1_walk import H1WalkEnv
+    from learninghumanoidwalking_tpu_torch.rl.eval import DeterministicPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jenv, tenv = JaxH1WalkEnv(), H1WalkEnv(device="cpu")
+    assert jenv.obs_size == tenv.obs_size == 43
+    ka, kc, ke = jax.random.split(jax.random.PRNGKey(6), 3)
+    a_params, e_params = (networks_init(jenv, k) for k in (ka, ke))
+    kw = dict(num_envs=8, rollout_len=4, minibatch_size=16, epochs=1, net_dtype="float32")
+    jtmp = jppo.PPO(jenv, jppo.PPOConfig(**kw))
+    c_params = jtmp.critic_def.init(kc, jnp.zeros((1, 43)))
+    rng = np.random.default_rng(9)
+    e_mean, e_std = rng.standard_normal(43).astype(np.float32) * 0.1, rng.uniform(0.5, 2.0, 43).astype(np.float32)
+    enorm = jnorm.init_norm(None, e_mean, e_std)
+    expert_apply = lambda p, o: jtmp.actor_def.apply(p, enorm.normalize(o))[0]
+    j = jppo.PPO(jenv, jppo.PPOConfig(**kw), imitation_projector=jenv.imitation_projector(),
+                 expert_apply=expert_apply, expert_params=e_params)
+    actor, expert_actor = (networks.GaussianActor(43, 10) for _ in range(2))
+    critic = networks.Critic(43)
+    actor.load_state_dict(convert.actor_state_dict(convert.flatten_params(a_params), 10))
+    expert_actor.load_state_dict(convert.actor_state_dict(convert.flatten_params(e_params), 10))
+    critic.load_state_dict(convert.critic_state_dict(convert.flatten_params(c_params)))
+    expert = DeterministicPolicy(expert_actor, convert.running_norm(enorm.mean, enorm.var, enorm.count))
+    t = ppo.PPO(tenv, ppo.PPOConfig(**kw), device="cpu", imitation_projector=tenv.imitation_projector(), expert=expert)
+    jn = jnorm.init_norm(None, jenv.obs_mean, jenv.obs_std)
+    tn = convert.running_norm(jn.mean, jn.var, jn.count)
+
+    obs = (rng.standard_normal((N_MB, 43)) * 0.5).astype(np.float32)
+    obs[:, 35:37] = np.clip(obs[:, 35:37], -1, 1)
+    mb = (obs, (0.3 * rng.standard_normal((N_MB, 10))).astype(np.float32), (rng.standard_normal(N_MB) * 0.5 + 8.0).astype(np.float32),
+          rng.standard_normal(N_MB).astype(np.float32), rng.standard_normal(N_MB).astype(np.float32))
+    grad_fn = jax.value_and_grad(j._loss_fn, argnums=(0, 1), has_aux=True)
+    (jtotal, jaux), (jga, jgc) = grad_fn(a_params, c_params, jn, tuple(map(jnp.asarray, mb)))
+    total, aux = t._loss_fn(actor, critic, tn, tuple(map(torch.as_tensor, mb)))
+    assert float(jaux["imitation_loss"]) > 1e-6  # the term is on (output heads start at 0.01 scale)
+    np.testing.assert_allclose(aux["imitation_loss"].item(), float(jaux["imitation_loss"]), rtol=1e-6)
+    _rel_close(total.item(), float(jtotal), 1e-4)
+    for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl"):
+        _rel_close(aux[k].item(), float(jaux[k]), 1e-4)
+    params = list(actor.named_parameters()) + list(critic.named_parameters())
+    grads = torch.autograd.grad(total, [p for _, p in params])
+    want = {**{"a." + k: v for k, v in convert.actor_state_dict(convert.flatten_params(jga), 10).items()},
+            **{"c." + k: v for k, v in convert.critic_state_dict(convert.flatten_params(jgc)).items()}}
+    n_actor = len(list(actor.parameters()))
+    for i, ((name, _), g) in enumerate(zip(params, grads)):
+        _rel_close(g.numpy(), want[("a." if i < n_actor else "c.") + name].numpy(), 1e-4)
+    assert all(p.grad is None for p in expert_actor.parameters())  # the expert stays frozen
+
+
+def networks_init(jenv, key):
+    j = jppo.PPO(jenv, jppo.PPOConfig(net_dtype="float32"))
+    return j.actor_def.init(key, jnp.zeros((1, jenv.obs_size)))
+
+
+def test_convert_carries_a_jax_checkpoint(tmp_path):
+    """The JAX Checkpointer's persisted tree (params, optax
+    apply_if_finite Adam states after a few steps, one of them non-finite,
+    norm, iteration), fetched as numpy and carried over by
+    rl/convert.py::checkpoint_from_jax, restores into a port trainer: the
+    JAX policy's actions (1e-5) and the same next Adam step as optax (1e-6
+    relative: parameters, both moments, count, notfinite_count)."""
+    import optax
+
+    from learninghumanoidwalking_tpu.envs.h1_stand import H1StandEnv as JaxH1StandEnv
+    from learninghumanoidwalking_tpu.rl.checkpoint import Checkpointer as JaxCheckpointer
+    from learninghumanoidwalking_tpu_torch.envs.h1_stand import H1StandEnv
+    from learninghumanoidwalking_tpu_torch.rl.checkpoint import Checkpointer
+
+    jenv, tenv = JaxH1StandEnv(), H1StandEnv(device="cpu")
+    kw = dict(num_envs=4, rollout_len=2, minibatch_size=4, epochs=1, net_dtype="float32")
+    j = jppo.PPO(jenv, jppo.PPOConfig(**kw))
+    ka, kc = jax.random.split(jax.random.PRNGKey(12))
+    a_params = j.actor_def.init(ka, jnp.zeros((1, 35)))
+    c_params = j.critic_def.init(kc, jnp.zeros((1, 35)))
+    a_opt, c_opt = j.actor_tx.init(a_params), j.critic_tx.init(c_params)
+    rng = np.random.default_rng(13)
+    rand_like = lambda tree, nan=False: jax.tree.map(
+        lambda x: jnp.asarray(np.where(nan, np.nan, rng.standard_normal(x.shape)).astype(np.float32)), tree)
+    for nan in (False, False, True):
+        ua, a_opt = j.actor_tx.update(rand_like(a_params, nan), a_opt, a_params)
+        a_params = optax.apply_updates(a_params, ua)
+        uc, c_opt = j.critic_tx.update(rand_like(c_params), c_opt, c_params)
+        c_params = optax.apply_updates(c_params, uc)
+    norm = jnorm.RunningNorm(mean=jnp.asarray(rng.standard_normal(35).astype(np.float32)),
+                             var=jnp.asarray(rng.uniform(0.5, 2, 35).astype(np.float32)), count=jnp.asarray(321.0))
+    jts = jppo.TrainState(actor_params=a_params, critic_params=c_params, actor_opt=a_opt, critic_opt=c_opt, norm=norm,
+                          env_state=None, key=jax.random.PRNGKey(0), iteration=jnp.asarray(17, jnp.int32))
+    tree = jax.device_get(JaxCheckpointer._persistable(jts))
+    assert int(tree["actor_opt"].notfinite_count) == 1
+
+    state = convert.checkpoint_from_jax(tree, action_dim=10)
+    Checkpointer(tmp_path).save_state(0, state)
+    t = ppo.PPO(tenv, ppo.PPOConfig(**kw), device="cpu")
+    ts = Checkpointer(tmp_path).restore(t.init_networks())
+    assert ts.iteration == 17 and int(ts.actor_opt.notfinite_count) == 1 and float(ts.actor_opt.count) == 2.0
+    obs = (rng.standard_normal((N_MB, 35)) * 0.5).astype(np.float32)
+    jm, _ = j._policy(a_params, norm, jnp.asarray(obs))
+    tm, _ = t._policy(ts.actor, ts.norm, torch.as_tensor(obs))
+    np.testing.assert_allclose(tm.detach().numpy(), np.asarray(jm), rtol=0, atol=1e-5)
+
+    # one more step on the same gradients
+    g = rand_like(a_params)
+    ua, a_opt2 = j.actor_tx.update(g, a_opt, a_params)
+    a_params2 = optax.apply_updates(a_params, ua)
+    tg = convert.actor_state_dict(convert.flatten_params(g), 10)
+    names = [n for n, _ in ts.actor.named_parameters()]
+    ts.actor_opt.step([tg[n] for n in names])
+    want = convert.actor_state_dict(convert.flatten_params(a_params2), 10)
+    adam = a_opt2.inner_state[1][0]
+    want_mu = convert.actor_state_dict(convert.flatten_params(adam.mu), 10)
+    want_nu = convert.actor_state_dict(convert.flatten_params(adam.nu), 10)
+    for i, (name, p) in enumerate(ts.actor.named_parameters()):
+        _rel_close(p.detach().numpy(), want[name].numpy(), 1e-6)
+        _rel_close(ts.actor_opt.mu[i].numpy(), want_mu[name].numpy(), 1e-6)
+        _rel_close(ts.actor_opt.nu[i].numpy(), want_nu[name].numpy(), 1e-6)
+    assert float(ts.actor_opt.count) == int(adam.count) == 3
+    assert int(ts.actor_opt.notfinite_count) == int(a_opt2.notfinite_count) == 0

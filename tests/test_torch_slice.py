@@ -1,5 +1,6 @@
 """CPU smoke of the port's training paths: PPO on jvrc_walk, jvrc_step,
-jvrc_walk_rough and jvrc_walk with the learned motor model through the same
+jvrc_walk_rough, jvrc_walk with the learned motor model, h1 and h1_walk
+through the same
 entry points chip_smoke.py drives on the card (make_env -> PPO -> train),
 at a small size: a few envs, a short rollout, 2 iterations, (32, 32)
 networks.
@@ -104,3 +105,24 @@ def test_two_motor_training_iterations_on_cpu():
     assert bool(traj["done"][:, 0].all()) and not bool(traj["done"][:, 1:].any())
     assert env_state.motor.count.tolist() == [0] + [int(c) + 75 for c in count[1:]]
     assert float(env_state.motor.ctau_hist[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name, obs_size", [("h1", 35), ("h1_walk", 43)])
+def test_two_h1_training_iterations_on_cpu(name, obs_size):
+    """H1 (dynamics randomization, perturbation wrenches and torque
+    observations on), evaluated at both iterations."""
+    env = make_env(name, device="cpu")
+    cfg = PPOConfig(num_envs=4, rollout_len=2, minibatch_size=4, epochs=1, net_dtype="float32",
+                    hidden=(32, 32), max_traj_len=2, eval_freq=1, seed=0)
+    trainer = PPO(env, cfg, device="cpu")
+    for c in substep_kernel.counters.values():
+        c.reset()
+    ts, history = trainer.train(2, verbose=False, evaluate=True)
+    assert all(c.launches == 0 for c in substep_kernel.counters.values())
+    assert len(history) == 2 and ts.iteration == 2
+    for m in history:
+        for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl", "mean_reward", "eval_mean_reward"):
+            assert math.isfinite(m[k]), (k, m[k])
+        assert m["eval_mean_episode_length"] <= 2
+    assert ts.env_state.obs.shape == (4, obs_size) and torch.isfinite(ts.env_state.obs).all()
+    assert (history[0]["mirror_loss"] > 0) == (name == "h1_walk")  # only h1_walk has mirror lists
