@@ -38,7 +38,10 @@
 // rule's qacc limit failed in 2 of 4096 jvrc_step envs on a CPU build):
 // K, its factor and the sweeps' vectors are float64 (see K below), and
 // the basis's linear part is taken about the foot body rather than the
-// world origin (basis_at). Factors keep their diagonal's reciprocals, so
+// world origin (basis_at). In the flat build G and LG's factorization are
+// float64 too (a 5-dof leg leaves G near singular; see the refresh); the
+// terrain and motor builds, which run JVRC's 6-dof legs only, keep them
+// float32. Factors keep their diagonal's reciprocals, so
 // the solves multiply instead of divide (float64 division is slow).
 //
 // Factorization reuse (the flat build at R > 1: physics/batched.py's
@@ -322,6 +325,9 @@ static_assert(TRI(MAX_V) <= W_ICOMP, "MW overlaps ICOMP");
 static_assert(W_ICOMP + NINER * MAX_B <= W_SIZE && W_GSUB + 6 * MAX_B <= W_SIZE, "dynamics scratch past the union");
 static_assert(W_GRD + MAX_K <= W_SIZE, "basis scratch past the union");
 static_assert(E_DINV % 2 == 0 && E_WORK % 2 == 0 && W_KW % 2 == 0 && W_LK % 2 == 0, "float64 arrays at odd offsets");
+#if !LHW_TERRAIN && !LHW_MOTOR
+static_assert(W_KW >= W_Y + MAX_K * MAX_V, "G's float64 factorization overlaps Y");
+#endif
 
 #if LHW_TERRAIN
 #define LHW_KERNEL control_step_terrain_kernel
@@ -1218,6 +1224,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         }
       }
       group_sync();
+#if LHW_MOTOR
       float* const gw = work + W_GW;
 #pragma unroll 1
       for (int p = lane; p < TRI(nk); p += GRP) {
@@ -1233,6 +1240,33 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
       }
       group_sync();
       group_cholesky(gw, lg, work + W_GRD, nk, lane);
+#else
+      // G and its factor in float64 (in the contact system's K, LK and LK's
+      // diagonal, free until the contacts): with 5-dof legs (Unitree H1) a
+      // foot's basis rows come close to dependent in some poses: G's least
+      // pivot fell to ~1e-8 of its largest diagonal entry, below float32's
+      // resolution, float32 rounding made it negative, and the clamped
+      // pivot blew the factor up (~1e9) and the env with it. From float32
+      // Y, G in float64 stays SPD. LG is kept in float32.
+      double* const gwd = (double*)(work + W_KW);
+      double* const lgd = (double*)(work + W_LK);
+#pragma unroll 1
+      for (int p = lane; p < TRI(nk); p += GRP) {
+        int r, c;
+        tri_rc(p, r, c);
+        const float* ya = y + c * MAX_V;
+        const float* yb = y + r * MAX_V;
+        double acc = 0.0;
+#pragma unroll 1
+        for (int d = 0; d < nv; ++d) acc += (double)ya[d] * yb[d];
+        gram[p] = (float)acc;
+        gwd[p] = (r == c) ? acc + 1e-8 : acc;  // G is SPD (independent basis rows through M^-1)
+      }
+      group_sync();
+      group_cholesky(gwd, lgd, (double*)(work + W_LKRD), nk, lane);
+      for (int p = lane; p < TRI(nk); p += GRP) lg[p] = (float)lgd[p];
+      group_sync();
+#endif
     }
 #pragma unroll 1
     for (int t = lane; t < 2 * nk; t += GRP) {

@@ -421,22 +421,20 @@ class PPO:
         return self.cfg.input_norm_iters if self.env.obs_mean is None else 0
 
     def train(self, n_itr: int | None = None, ts: TrainState | None = None, verbose: bool = True, on_iteration=None,
-              logger=None, checkpointer=None, profile_dir: str | Path | None = None, evaluate: bool | None = None):
+              logger=None, checkpointer=None, profile_dir: str | Path | None = None, evaluate: bool = True):
         """Warmup, then ``n_itr`` iterations of sampling + optimization.
         Every ``eval_freq`` iterations and at the last one, a deterministic
         evaluation (_eval_rollout), logged and, with a ``checkpointer``,
         saved as checkpoint ``itr`` (the best by eval reward also as
-        best.pt). ``evaluate`` (default: when there is a logger, a
-        checkpointer or verbose output to take the result) turns the
-        evaluations on or off; they do not change the training. With ``profile_dir``, torch.profiler traces iterations 2-4
+        best.pt), as in the JAX trainer; ``evaluate=False`` turns the
+        evaluations off (they do not change the training). With
+        ``profile_dir``, torch.profiler traces iterations 2-4
         (or 2 to the last) on the CPU and the card and writes a Chrome trace
         there (trace.json). Returns (final TrainState, per-iteration
         metrics); ``on_iteration(itr, metrics)`` sees each iteration's.
         Times are taken after a device synchronization."""
         cfg = self.cfg
         n_itr = cfg.n_itr if n_itr is None else n_itr
-        if evaluate is None:
-            evaluate = logger is not None or checkpointer is not None or verbose
         ts = self.init_state() if ts is None else ts
         for _ in range(self.warmup_iterations()):
             ts = self._warmup_iteration(ts)

@@ -154,7 +154,7 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
     in the JAX package, a resumed run starts from fresh envs), so it is
     handed over here: what the checkpoint keeps must be all the rest."""
     a = _small_trainer()
-    ts_a, hist_a = a.train(3, verbose=False)
+    ts_a, hist_a = a.train(3, verbose=False, evaluate=False)
 
     b = _small_trainer()
     ck = checkpoint.Checkpointer(tmp_path)
@@ -164,7 +164,7 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 
     c = _small_trainer(seed=3)
     target = dataclasses.replace(c.init_networks(), env_state=ts_b.env_state)
-    ts_c, hist_c = c.train(1, ts=ck.restore(target, c.draws), verbose=False)
+    ts_c, hist_c = c.train(1, ts=ck.restore(target, c.draws), verbose=False, evaluate=False)
     _assert_states_equal(ts_c, ts_a)
     assert ts_c.iteration == 3
     assert torch.equal(ts_c.env_state.obs, ts_a.env_state.obs)
@@ -231,7 +231,7 @@ def test_profiler_hook_writes_a_trace(tmp_path, monkeypatch):
 
     monkeypatch.setattr(humanoid, "pd_substeps_kernel", lambda model, dyn, physics, *args, **kw: physics)
     trainer = _small_trainer(eval_freq=100)
-    _, history = trainer.train(3, verbose=False, profile_dir=tmp_path, evaluate=True)
+    _, history = trainer.train(3, verbose=False, profile_dir=tmp_path)
     assert [("eval_time" in m) for m in history] == [True, False, True]
     summary = summarize_trace(tmp_path / "trace.json")
     assert summary["spans"]["ppo.iteration"]["count"] == 1

@@ -28,7 +28,7 @@ def test_two_training_iterations_on_cpu():
     for c in substep_kernel.counters.values():
         c.reset()
     before = [p.detach().clone() for p in trainer.init_state().actor.parameters()]
-    ts, history = trainer.train(2, verbose=False)
+    ts, history = trainer.train(2, verbose=False, evaluate=False)
     assert all(c.launches == 0 for c in substep_kernel.counters.values())
     assert len(history) == 2 and ts.iteration == 2
     for m in history:
@@ -48,7 +48,7 @@ def test_two_terrain_training_iterations_on_cpu(name, obs_size):
     trainer = PPO(env, cfg, device="cpu")
     for c in substep_kernel.counters.values():
         c.reset()
-    ts, history = trainer.train(2, verbose=False)
+    ts, history = trainer.train(2, verbose=False, evaluate=False)
     assert all(c.launches == 0 for c in substep_kernel.counters.values())
     assert len(history) == 2 and ts.iteration == 2
     for m in history:
@@ -87,7 +87,7 @@ def test_two_motor_training_iterations_on_cpu():
     trainer = PPO(env, cfg, device="cpu")
     for c in substep_kernel.counters.values():
         c.reset()
-    ts, history = trainer.train(2, verbose=False)
+    ts, history = trainer.train(2, verbose=False, evaluate=False)
     assert all(c.launches == 0 for c in substep_kernel.counters.values())
     assert set(substep_kernel.counters) == {"K1", "K2", "K3", "K4"}
     assert len(history) == 2 and ts.iteration == 2
@@ -117,7 +117,7 @@ def test_two_h1_training_iterations_on_cpu(name, obs_size):
     trainer = PPO(env, cfg, device="cpu")
     for c in substep_kernel.counters.values():
         c.reset()
-    ts, history = trainer.train(2, verbose=False, evaluate=True)
+    ts, history = trainer.train(2, verbose=False)
     assert all(c.launches == 0 for c in substep_kernel.counters.values())
     assert len(history) == 2 and ts.iteration == 2
     for m in history:
