@@ -76,7 +76,23 @@ the phase's own seconds:
    iteration (the restored state equal to the saved one bit for bit);
    eval --path for 2 episodes into an .npz; h1_walk for 2 iterations, then
    --imitate of that run for 1 iteration (a finite imitation loss > 0);
-   every launch in K1 and counted exactly; then h1 with --profile-dir for 3
+   every launch in K1 and counted exactly. Recurrent PPO (LSTM 2x256
+   actor and critic, float32) through the same command line: jvrc_walk
+   --recurrent at the same workload (16 sequence minibatches of 2048 envs,
+   3 epochs) for 2 iterations with an evaluation at each and its
+   checkpoints, every launch in K1 and counted exactly, finite losses, and
+   after the last rollout the carry rows exactly zero for the envs that
+   finished at its last step (the trajectory's done mask) and non-zero for
+   every other env; --continued for 1 iteration (the restored state equal
+   to the saved one bit for bit, the carries its first rollout starts from
+   zero); eval --path for 2 episodes. The LSTM actor and critic on the
+   card against the CPU (16 steps of 2048 envs with resets, float32, TF32
+   off, 1e-5 relative). Cartpole through the command line, feed-forward
+   and --recurrent, at 4096 envs and rollout 16 (5 observation-norm warmup
+   iterations, then 2): no kernel launch, the norm's count as the warmup
+   leaves it, finite losses; one cartpole control step of engine_step_b
+   (4 substeps) on the card held to a float64 run of the same function on
+   the CPU (1e-5). Then h1 with --profile-dir for 3
    iterations: the 5 CUDA kernels with the most device time in the trace
    and the device's idle share over the traced iteration;
 5. the kernel table.
@@ -113,6 +129,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
         return 2
 
+    import copy
     import dataclasses
     import os
     import shutil
@@ -129,8 +146,10 @@ def main() -> int:
     from learninghumanoidwalking_tpu_torch import run_experiment as cli
     from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params, tree_map
     from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
+    from learninghumanoidwalking_tpu_torch.rl import networks
     from learninghumanoidwalking_tpu_torch.rl.checkpoint import Checkpointer
     from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
+    from learninghumanoidwalking_tpu_torch.rl.ppo import mask_carry
     from learninghumanoidwalking_tpu_torch.rl.trace import summarize_trace
     from learninghumanoidwalking_tpu_torch.utils import maths
     from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
@@ -1041,7 +1060,7 @@ def main() -> int:
         losses = [m[k] for m in hist for k in ("actor_loss", "critic_loss", "mirror_loss", "imitation_loss", "approx_kl")]
         ok = launches == want and all(np.isfinite(losses))
         parts = [f"{seconds:.1f} s in all", f"launches {launches} (expected {want})", f"losses finite {all(np.isfinite(losses))}",
-                 f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"]
+                 f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", smi]
         for i, m in enumerate(hist):
             parts.append(
                 f"itr {i}: sampling {m['sample_env_steps_per_s']:,.0f} env-steps/s ({m['sample_time']:.2f} s), optimize "
@@ -1053,7 +1072,7 @@ def main() -> int:
                                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         save_results()
         if not ok:
-            raise RuntimeError(f"the H1 path {title} failed its checks")
+            raise RuntimeError(f"the command-line path {title} failed its checks")
         return out
 
     def train_launches(n_itr, evals, traj=H1_TRAJ):
@@ -1068,23 +1087,31 @@ def main() -> int:
     cont = cli_path("h1 --continued (1 iteration)", cli.train,
                     ["--env", "h1", "--logdir", os.path.join(logroot, "h1_cont"), "--continued", h1_logs, "--n-itr", "1", *workload],
                     lambda out: train_launches(1, 1))
-    # what --continued restores is the saved state, bit for bit: restore the
-    # latest checkpoint into a fresh trainer (no env batch: no launch) and
-    # hold it to the state the first run ended with
+    def restores_saved_state(env, saved, ref_ts, recurrent=False):
+        """What --continued restores is the saved state, bit for bit: the
+        latest checkpoint restored into a fresh trainer (no env batch: no
+        launch), its networks drawn from another seed first, held to the
+        state the saved run ended with; a recurrent run's carries zero."""
+        cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout, minibatch_size=32768, seed=5, recurrent=recurrent)
+        restored = saved.restore(PPO(env, cfg, device=dev).init_networks())
+        same = (all(torch.equal(a, b) for a, b in zip(restored.actor.state_dict().values(), ref_ts.actor.state_dict().values()))
+                and all(torch.equal(a, b) for a, b in zip(restored.critic.state_dict().values(), ref_ts.critic.state_dict().values()))
+                and all(torch.equal(a, b) for o, r in ((restored.actor_opt, ref_ts.actor_opt), (restored.critic_opt, ref_ts.critic_opt))
+                        for a, b in zip(o.mu + o.nu + [o.count, o.notfinite_count], r.mu + r.nu + [r.count, r.notfinite_count]))
+                and all(torch.equal(getattr(restored.norm, f), getattr(ref_ts.norm, f)) for f in ("mean", "var", "count"))
+                and restored.iteration == ref_ts.iteration)
+        if recurrent:
+            same = same and all(float(x.abs().max()) == 0 for pair in restored.actor_carry + restored.critic_carry for x in pair)
+        return same, restored.iteration
+
     ref_ts = h1_run["ts"]
-    trainer = PPO(h1_env, PPOConfig(num_envs=num_envs, rollout_len=rollout, minibatch_size=32768, seed=5), device=dev)
-    restored = saved.restore(trainer.init_networks())  # networks drawn from another seed first
-    same = (all(torch.equal(a, b) for a, b in zip(restored.actor.state_dict().values(), ref_ts.actor.state_dict().values()))
-            and all(torch.equal(a, b) for a, b in zip(restored.critic.state_dict().values(), ref_ts.critic.state_dict().values()))
-            and all(torch.equal(a, b) for o, r in ((restored.actor_opt, ref_ts.actor_opt), (restored.critic_opt, ref_ts.critic_opt))
-                    for a, b in zip(o.mu + o.nu + [o.count, o.notfinite_count], r.mu + r.nu + [r.count, r.notfinite_count]))
-            and all(torch.equal(getattr(restored.norm, f), getattr(ref_ts.norm, f)) for f in ("mean", "var", "count"))
-            and restored.iteration == ref_ts.iteration == cont["resumed_at"] == 2 and cont["ts"].iteration == 3)
+    same, restored_itr = restores_saved_state(h1_env, saved, ref_ts)
+    same = same and restored_itr == cont["resumed_at"] == 2 and cont["ts"].iteration == 3
     log(f"phase 4 h1 resume: restored params, Adam states, norm and iteration equal the saved ones {same} "
-        f"(iteration {restored.iteration}, resumed at {cont['resumed_at']}, ended at {cont['ts'].iteration})")
+        f"(iteration {restored_itr}, resumed at {cont['resumed_at']}, ended at {cont['ts'].iteration})")
     if not same:
         raise RuntimeError("--continued did not restore the saved state")
-    del restored, trainer, cont
+    del cont
     npz = os.path.join(logroot, "h1_eval.npz")
     ev = cli_path("h1 eval --path (2 episodes)", cli.evaluate, ["--path", str(h1_run["run_dir"]), "--episodes", "2",
                   "--max-steps", str(H1_TRAJ), "--out", npz, "--device", "cuda"], lambda out: 1 + out["steps"])
@@ -1104,6 +1131,149 @@ def main() -> int:
     if not (np.isfinite(imit_loss) and imit_loss > 0):
         raise RuntimeError(f"--imitate gave an imitation loss of {imit_loss}")
     del imit
+
+    # ---- phase 4: recurrent PPO on jvrc_walk through the command line -------
+    # each recurrent rollout of the runs below records whether the carries
+    # it starts from are all zero and the done mask of its last step
+    rollouts = []
+    rollout_recurrent = PPO._rollout_recurrent
+
+    def recording_rollout(self, ts, deterministic):
+        env_state, traj = rollout_recurrent(self, ts, deterministic)
+        start_zero = all(float(x.abs().max()) == 0 for pair in ts.actor_carry + ts.critic_carry for x in pair)
+        rollouts.append(dict(start_zero=start_zero, done_last=traj["done"][-1]))
+        return env_state, traj
+
+    PPO._rollout_recurrent = recording_rollout
+    jvrc_env = envs["K1"]
+    rec_logs = os.path.join(logroot, "jvrc_walk_rec")
+    try:
+        rec_run = cli_path("jvrc_walk --recurrent (train, 2 iterations)", cli.train,
+                           ["--env", "jvrc_walk", "--recurrent", "--logdir", rec_logs, "--n-itr", "2", *workload],
+                           lambda out: train_launches(2, 2))
+        rec_ts, done_last = rec_run["ts"], rollouts[-1]["done_last"]
+        # after the last rollout the carry rows of the envs that finished at
+        # its last step are exactly zero (zeroed, as at every episode end),
+        # and those of every other env are not
+        zero_done = all(bool((x[done_last] == 0).all()) for pair in rec_ts.actor_carry + rec_ts.critic_carry for x in pair)
+        nonzero_rest = all(bool((x[~done_last].abs().amax(1) > 0).all())
+                           for pair in rec_ts.actor_carry + rec_ts.critic_carry for x in pair)
+        finite = all(bool(torch.isfinite(x).all()) for pair in rec_ts.actor_carry + rec_ts.critic_carry for x in pair)
+        ok_carry = len(rollouts) == 2 and rollouts[0]["start_zero"] and zero_done and nonzero_rest and finite
+        log(f"phase 4 jvrc_walk --recurrent carries: {'PASS' if ok_carry else 'FAIL'} | {len(rollouts)} rollouts, the first from "
+            f"zero carries {rollouts[0]['start_zero']} | after the last, {int(done_last.sum())} envs done at its last step: their "
+            f"rows zero {zero_done}, every other env's row non-zero {nonzero_rest} | finite {finite} | layers "
+            f"{[tuple(c.shape) for c, _ in rec_ts.actor_carry]}")
+        if not ok_carry:
+            raise RuntimeError("the recurrent rollout's carries are not masked at episode ends as expected")
+        rec_saved = Checkpointer(rec_run["run_dir"])
+        rollouts.clear()
+        rec_cont = cli_path("jvrc_walk --recurrent --continued (1 iteration)", cli.train,
+                            ["--env", "jvrc_walk", "--recurrent", "--logdir", os.path.join(logroot, "jvrc_walk_rec_cont"),
+                             "--continued", rec_logs, "--n-itr", "1", *workload], lambda out: train_launches(1, 1))
+    finally:
+        PPO._rollout_recurrent = rollout_recurrent
+    same, restored_itr = restores_saved_state(jvrc_env, rec_saved, rec_ts, recurrent=True)
+    start_zero = len(rollouts) == 1 and rollouts[0]["start_zero"]
+    same = same and start_zero and restored_itr == rec_cont["resumed_at"] == 2 and rec_cont["ts"].iteration == 3
+    log(f"phase 4 jvrc_walk --recurrent resume: restored params, Adam states, norm and iteration equal the saved ones and "
+        f"the resumed run's rollout started from zero carries: {same} ({len(rollouts)} rollouts, from zero carries {start_zero}; "
+        f"resumed at {rec_cont['resumed_at']}, ended at {rec_cont['ts'].iteration})")
+    if not same:
+        raise RuntimeError("--continued did not restore the recurrent run's saved state")
+    del rec_cont
+    rec_npz = os.path.join(logroot, "jvrc_walk_rec_eval.npz")
+    rec_ev = cli_path("jvrc_walk --recurrent eval --path (2 episodes)", cli.evaluate,
+                      ["--path", str(rec_run["run_dir"]), "--episodes", "2", "--max-steps", str(H1_TRAJ), "--out", rec_npz,
+                       "--device", "cuda"], lambda out: 1 + out["steps"])
+    data = np.load(rec_npz)
+    if sorted(data.files) != ["episode_0", "episode_1"] or not all(np.isfinite(data[k]).all() for k in data.files):
+        raise RuntimeError(f"recurrent eval wrote {data.files}")
+    log(f"phase 4 jvrc_walk --recurrent eval: episode rewards {rec_ev['rewards']}, lengths {rec_ev['lengths']}")
+    del rec_run, rec_ts
+
+    # ---- phase 4: the LSTM nets on the card against the CPU ----------------
+    LSTM_B, LSTM_T = 2048, 16
+    gen = torch.Generator().manual_seed(7)
+    nets_cpu = (networks.GaussianLSTMActor(jvrc_env.obs_size, jvrc_env.action_size, gen=gen),
+                networks.LSTMCritic(jvrc_env.obs_size, gen=gen))
+    nets_dev = tuple(copy.deepcopy(net).to(dev) for net in nets_cpu)
+    rng = np.random.default_rng(8)
+    obs = torch.as_tensor(rng.standard_normal((LSTM_T, LSTM_B, jvrc_env.obs_size)).astype(np.float32))
+    done = torch.as_tensor(rng.random((LSTM_T, LSTM_B)) < 0.05)
+    hidden = tuple(c.hh.weight.shape[1] for c in nets_cpu[0].core.cells)
+    carries_cpu = [networks.LSTMCore.initial_carry(hidden, (LSTM_B,)) for _ in nets_cpu]
+    carries_dev = [networks.LSTMCore.initial_carry(hidden, (LSTM_B,), dev) for _ in nets_cpu]
+    worst = {}
+
+    def rel_err(a, b) -> float:
+        return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    with torch.no_grad():
+        for t in range(LSTM_T):
+            for k, net in enumerate(nets_cpu):
+                carries_cpu[k], out_c = net(mask_carry(carries_cpu[k], done[t]), obs[t])
+                carries_dev[k], out_d = nets_dev[k](mask_carry(carries_dev[k], done[t].to(dev)), obs[t].to(dev))
+                outs = zip(out_d, out_c) if k == 0 else [(out_d, out_c)]
+                for j, (a, b) in enumerate(outs):
+                    key = ("mean", "log_std")[j] if k == 0 else "value"
+                    worst[key] = max(worst.get(key, 0.0), rel_err(a, b))
+                for (cd, hd), (cc, hc) in zip(carries_dev[k], carries_cpu[k]):
+                    worst["carries"] = max(worst.get("carries", 0.0), rel_err(cd, cc), rel_err(hd, hc))
+    ok_lstm = all(v <= 1e-5 for v in worst.values())
+    results["phase 4 LSTM card vs CPU"] = worst
+    log(f"phase 4 LSTM 2x{hidden[0]} actor and critic, {LSTM_T} steps of {LSTM_B} envs with resets, float32 (TF32 off), "
+        f"card vs CPU: {'PASS' if ok_lstm else 'FAIL'} | worst error relative to each quantity's largest magnitude "
+        f"{json.dumps(worst)} (limit 1e-5)")
+    if not ok_lstm:
+        raise RuntimeError("the LSTM nets on the card left the CPU's by more than 1e-5")
+    del nets_cpu, nets_dev, carries_cpu, carries_dev
+
+    # ---- phase 4: cartpole through the command line (no kernel) -------------
+    CART_B = 4096
+    cart_workload = ["--num-envs", str(CART_B), "--rollout-len", str(rollout), "--minibatch-size", "32768",
+                     "--max-traj-len", str(H1_TRAJ), "--device", "cuda"]
+    warm_count = 1e-4 + 5 * rollout * CART_B  # 5 warmup iterations of the running norm
+    for flag in ([], ["--recurrent"]):
+        title = "cartpole" + (" --recurrent" if flag else "") + " (train, 5 warmup + 2 iterations)"
+        out = cli_path(title, cli.train, ["--env", "cartpole", *flag, "--logdir", os.path.join(logroot, "cartpole" + "".join(flag)),
+                                          "--n-itr", "2", *cart_workload], lambda out: 0)
+        count = float(out["ts"].norm.count)
+        ok_norm = abs(count - warm_count) <= 1.0 and bool(torch.isfinite(out["ts"].norm.var).all())
+        log(f"phase 4 {title}: norm count {count:.1f} (expected {warm_count:.1f} after the warmup) {'PASS' if ok_norm else 'FAIL'}")
+        if not ok_norm:
+            raise RuntimeError(f"{title}: the observation-norm warmup did not run as expected")
+        del out
+
+    # one control step of cartpole (4 substeps of engine_step_b) on the card,
+    # held to a float64 run of the same function on the CPU
+    cart = make_env("cartpole", device=dev)
+    cgen = torch.Generator(device=dev)
+    cgen.manual_seed(11)
+    cstate = cart.reset_batch(CART_B, Draws(cgen))
+    caction = 0.5 * torch.randn((CART_B, 1), generator=cgen, device=dev)
+    cout = cart.step_batch(cstate, caction)
+    to64 = lambda x: x.detach().cpu().double() if torch.is_tensor(x) and x.is_floating_point() else (x.cpu() if torch.is_tensor(x) else x)
+    prev_dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        cart64 = make_env("cartpole", device="cpu")
+        cart64.model = tree_map(to64, cart64.model)
+        cout64 = cart64.step_batch(tree_map(to64, cstate), to64(caction))
+    finally:
+        torch.set_default_dtype(prev_dtype)
+    cart_err = {}
+    for name, a, b in (("qpos", cout.physics.qpos, cout64.physics.qpos), ("qvel", cout.physics.qvel, cout64.physics.qvel),
+                       ("qacc", cout.physics.qacc, cout64.physics.qacc), ("obs", cout.obs, cout64.obs),
+                       ("reward_components", cout.reward_components, cout64.reward_components)):
+        cart_err[name] = float((a.cpu().double() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    ok_cart = all(v <= 1e-5 for v in cart_err.values()) and cout.done.cpu().tolist() == cout64.done.tolist()
+    results["phase 4 cartpole engine_step_b vs float64"] = cart_err
+    log(f"phase 4 cartpole engine_step_b, one control step at B={CART_B}, card float32 vs CPU float64: "
+        f"{'PASS' if ok_cart else 'FAIL'} | worst error over max(1, largest magnitude) {json.dumps(cart_err)} (limit 1e-5)")
+    if not ok_cart:
+        raise RuntimeError("cartpole's engine_step_b on the card left float64")
+    save_results()
 
     # ---- phase 4: the profiler hook on h1 ------------------------------------
     prof_dir = os.path.join(logroot, "h1_profile")

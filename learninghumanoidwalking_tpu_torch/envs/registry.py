@@ -1,7 +1,7 @@
 """Environment registry (counterpart of learninghumanoidwalking_tpu/envs/registry.py).
 
-Ported so far: jvrc_walk, jvrc_step, jvrc_walk_rough, h1 and h1_walk; the
-JAX package's cartpole and MJCF-built envs are not ported yet.
+Ported so far: cartpole, jvrc_walk, jvrc_step, jvrc_walk_rough, h1 and
+h1_walk; the JAX package's MJCF-built envs are not ported yet.
 """
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from __future__ import annotations
 import importlib
 
 ENVIRONMENTS: dict[str, tuple[str, str]] = {
+    "cartpole": ("learninghumanoidwalking_tpu_torch.envs.cartpole", "CartpoleEnv"),
     "h1": ("learninghumanoidwalking_tpu_torch.envs.h1_stand", "H1StandEnv"),
     "h1_walk": ("learninghumanoidwalking_tpu_torch.envs.h1_walk", "H1WalkEnv"),
     "jvrc_walk": ("learninghumanoidwalking_tpu_torch.envs.jvrc_walk", "JvrcWalkEnv"),

@@ -545,9 +545,13 @@ __device__ __forceinline__ void group_fk(const float* sf, const int* si, const f
         x[1] = xpre[1] + a1[1] - a2[1];
         x[2] = xpre[2] + a1[2] - a2[2];
       } else if (jt == J_SLIDE) {
+        // the axis in the parent frame, as fk_b and the motion subspace take it
         const float* ax = sf + F_JAXIS + 3 * i;
+        const float d[3] = {ax[0] * q[adr], ax[1] * q[adr], ax[2] * q[adr]};
+        float a1[3];
+        qrot(qpre, d, a1);
         qq[0] = qpre[0]; qq[1] = qpre[1]; qq[2] = qpre[2]; qq[3] = qpre[3];
-        x[0] = xpre[0] + ax[0] * q[adr]; x[1] = xpre[1] + ax[1] * q[adr]; x[2] = xpre[2] + ax[2] * q[adr];
+        x[0] = xpre[0] + a1[0]; x[1] = xpre[1] + a1[1]; x[2] = xpre[2] + a1[2];
       } else {
         qq[0] = qpre[0]; qq[1] = qpre[1]; qq[2] = qpre[2]; qq[3] = qpre[3];
         x[0] = xpre[0]; x[1] = xpre[1]; x[2] = xpre[2];

@@ -15,9 +15,16 @@ rmats (B, nb, 3, 3), S (B, nv, 6), cvel (B, nb, 6), inertias
 
 ops/substep_kernel.py launches the hand-written CUDA kernel for CUDA
 tensors and calls ``pd_substeps_batched`` below for CPU tensors.
+
+``engine_step_b`` / ``engine_forward_b`` at the end are the JAX package's
+engine step (engine.step / engine.forward: mj_step / mj_forward) on the same
+helpers, with its projected Jacobi contact solve in place of the kernels'
+dense solve; the cartpole env and robots/pd.py run them, no kernel does.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -34,6 +41,9 @@ from learninghumanoidwalking_tpu_torch.utils.maths import cross
 # preconditioned projected-refinement sweeps for the contact solve: one
 # initial projection plus PROJ_REFINE_ITERS - 1 refinements
 PROJ_REFINE_ITERS = 4
+# projected-Jacobi sweeps for the dual contact solve of the engine step
+SOLVER_ITERATIONS = 30
+SOLVER_RELAXATION = 0.95
 
 
 def _const(x, like: torch.Tensor) -> torch.Tensor:
@@ -47,11 +57,13 @@ def _const(x, like: torch.Tensor) -> torch.Tensor:
 
 
 def fk_b(model: Model, qpos: torch.Tensor):
-    """qpos (B, nq) -> xpos (B, nb, 3), xquat (B, nb, 4)."""
+    """qpos (B, nq) -> xpos (B, nb, 3), xquat (B, nb, 4). A slide joint
+    moves along its axis in the parent frame, as the JAX engine's fk and
+    ``motion_subspace_b`` take it."""
     batch = qpos.shape[0]
     dev = qpos.device
-    zero3 = torch.zeros((batch, 3), device=dev)
-    ident = torch.zeros((batch, 4), device=dev)
+    zero3 = torch.zeros((batch, 3), device=dev, dtype=qpos.dtype)
+    ident = torch.zeros((batch, 4), device=dev, dtype=qpos.dtype)
     ident[:, 0] = 1.0
     xpos, xquat = [zero3], [ident]
     for i in range(1, model.nbody):
@@ -73,7 +85,7 @@ def fk_b(model: Model, qpos: torch.Tensor):
             x = x_pre + maths.quat_rotate(q_pre, anchor) - maths.quat_rotate(q, anchor)
         elif jt == SLIDE:
             q = q_pre
-            x = x_pre + model.jnt_axis[i] * qpos[:, adr, None]
+            x = x_pre + maths.quat_rotate(q_pre, model.jnt_axis[i] * qpos[:, adr, None])
         else:
             q, x = q_pre, x_pre
         xpos.append(x)
@@ -261,10 +273,11 @@ def contact_jacobian_b(model: Model, jac, cpos, cframe):
     return torch.stack(blocks, dim=1)
 
 
-def constraint_solve_b(model: Model, qvel, jac, chol, qacc_smooth, cpos, dist, mask, cframe):
-    """Soft-contact solve: Cholesky of the regularized dual as a
-    preconditioner plus projected refinements. Returns (qacc (B,nv),
-    force (B,nc,3))."""
+def dual_system_b(model: Model, qvel, jac, chol, qacc_smooth, cpos, dist, mask, cframe):
+    """The regularized dual contact problem A f = b (MuJoCo-like soft
+    constraints: impedance from solimp, reference acceleration from solref),
+    masked slots deactivated with unit diagonal rows. Returns (Jc flat
+    (B,3nc,nv), A (B,3nc,3nc), b (B,3nc), per-slot friction mu (nc,))."""
     nc = model.ncon
     batch = qvel.shape[0]
     jc = contact_jacobian_b(model, jac, cpos, cframe)  # (B, nc, 3, nv)
@@ -295,18 +308,32 @@ def constraint_solve_b(model: Model, qvel, jac, chol, qacc_smooth, cpos, dist, m
     b_vec = (aref.reshape(batch, 3 * nc) - torch.einsum("biv,bv->bi", jc_flat, qacc_smooth)) * mask3
 
     mu = _const(np.repeat(model.np("geom_friction")[list(model.foot_geoms)], eng.slots_per_geom(model)), qvel)
+    return jc_flat, a_mat, b_vec, mu
 
+
+def project_friction_cone(f, mu, mask):
+    """Project stacked contact forces f (B, 3nc) onto {f_n >= 0,
+    |f_t| <= mu f_n} per slot, masked slots zeroed."""
+    batch, nc = f.shape[0], mu.shape[0]
+    f3 = f.reshape(batch, nc, 3)
+    fn = torch.clamp_min(f3[..., 0], 0.0)
+    ft = f3[..., 1:]
+    ft_norm = torch.sqrt(torch.sum(ft * ft, dim=-1)) + 1e-9
+    scale = torch.clamp_max((mu * fn) / ft_norm, 1.0)
+    f3 = torch.cat([fn[..., None], ft * scale[..., None]], dim=-1) * mask[..., None]
+    return f3.reshape(batch, 3 * nc)
+
+
+def constraint_solve_b(model: Model, qvel, jac, chol, qacc_smooth, cpos, dist, mask, cframe):
+    """Soft-contact solve: Cholesky of the regularized dual as a
+    preconditioner plus projected refinements. Returns (qacc (B,nv),
+    force (B,nc,3))."""
+    nc = model.ncon
+    batch = qvel.shape[0]
+    jc_flat, a_mat, b_vec, mu = dual_system_b(model, qvel, jac, chol, qacc_smooth, cpos, dist, mask, cframe)
     chol_a = cholesky_outer(a_mat)
 
-    def project(f):
-        f3 = f.reshape(batch, nc, 3)
-        fn = torch.clamp_min(f3[..., 0], 0.0)
-        ft = f3[..., 1:]
-        ft_norm = torch.sqrt(torch.sum(ft * ft, dim=-1)) + 1e-9
-        scale = torch.clamp_max((mu * fn) / ft_norm, 1.0)
-        f3 = torch.cat([fn[..., None], ft * scale[..., None]], dim=-1) * mask[..., None]
-        return f3.reshape(batch, 3 * nc)
-
+    project = lambda f: project_friction_cone(f, mu, mask)
     force = project(cho_solve_outer(chol_a, b_vec))
     for _ in range(PROJ_REFINE_ITERS - 1):
         r = b_vec - torch.einsum("bij,bj->bi", a_mat, force)
@@ -444,3 +471,82 @@ def pd_substeps_batched(
     if motor is None:
         return out
     return out, MotorState(qdot_hist=qd_h, ctau_hist=ct_h, count=count)
+
+
+# --------------------------------------------------------------------------
+# the engine step (mj_step / mj_forward)
+# --------------------------------------------------------------------------
+
+
+def _kinematics_b(model: Model, qpos, qvel):
+    """(xpos, xquat, cvel) at qpos, qvel."""
+    xpos, xquat = fk_b(model, qpos)
+    cvel = body_velocities_b(model, motion_subspace_b(model, xpos, maths.quat_to_mat(xquat)), qvel)
+    return xpos, xquat, cvel
+
+
+def _smooth_dynamics_b(model: Model, params: DynParams, state: PhysicsState, ctrl, dt):
+    """Everything before the contact solve, from the state's FK caches:
+    (jac, chol of M + dt diag(damping), qacc_smooth, act_force)."""
+    rmats = maths.quat_to_mat(state.xquat)
+    jac, _, _, inertias, qfrc_smooth, act_force = smooth_forces_b(
+        model, params, state.qpos, state.qvel, state.xpos, state.xquat, rmats, ctrl
+    )
+    chol = factorize_b(model, params, jac, inertias, dt)
+    return jac, chol, cho_solve_outer(chol, qfrc_smooth), act_force
+
+
+def jacobi_solve_b(a_mat, b_vec, mu, mask, iterations: int = SOLVER_ITERATIONS):
+    """Projected Jacobi iteration on the dual contact problem A f = b
+    (B, 3nc): each sweep steps every row by its residual over its absolute
+    row sum (a Gershgorin bound that keeps the iteration contractive for the
+    coupled 4-corner foot systems), relaxed, then projects each slot onto
+    its friction cone."""
+    diag = torch.clamp_min(torch.sum(torch.abs(a_mat), dim=-1), 1e-8)
+    f = torch.zeros_like(b_vec)
+    for _ in range(iterations):
+        r = b_vec - torch.einsum("bij,bj->bi", a_mat, f)
+        f = project_friction_cone(f + SOLVER_RELAXATION * r / diag, mu, mask)
+    return f
+
+
+def _contacts_and_solve_b(model: Model, state: PhysicsState, jac, chol, qacc_smooth, terrain):
+    """Contact detection at the state's pose and the Jacobi contact solve:
+    (qacc (B, nv), Contact)."""
+    batch, dev = state.qpos.shape[0], state.qpos.device
+    if model.ncon == 0:
+        empty = lambda *shape: torch.zeros((batch, 0) + shape, device=dev)
+        return qacc_smooth, Contact(pos=empty(3), frame=empty(3, 3), dist=empty(), geom=empty().to(torch.int32),
+                                    force=empty(3), mask=empty())
+    rmats = maths.quat_to_mat(state.xquat)
+    cpos, dist, mask, cframe = detect_contacts_b(model, state.xpos, state.xquat, rmats, terrain)
+    jc_flat, a_mat, b_vec, mu = dual_system_b(model, state.qvel, jac, chol, qacc_smooth, cpos, dist, mask, cframe)
+    force = jacobi_solve_b(a_mat, b_vec, mu, mask)
+    qacc = qacc_smooth + cho_solve_outer(chol, torch.einsum("biv,bi->bv", jc_flat, force))
+    geom = torch.as_tensor(eng.slot_geoms(model), dtype=torch.int32, device=dev).expand(batch, -1)
+    contact = Contact(pos=cpos, frame=cframe, dist=dist, geom=geom, force=force.reshape(batch, model.ncon, 3), mask=mask)
+    return qacc, contact
+
+
+def engine_step_b(model: Model, params: DynParams, state: PhysicsState, ctrl, dt, terrain: eng.Terrain | None = None):
+    """Advance every env by one ``dt`` (mj_step): ctrl (B, nu). Consumes the
+    state's FK caches and refreshes them at the new state."""
+    jac, chol, qacc_smooth, act_force = _smooth_dynamics_b(model, params, state, ctrl, dt)
+    qacc, contact = _contacts_and_solve_b(model, state, jac, chol, qacc_smooth, terrain)
+    # runaway guard: clamp far above physical speeds (NaN passes through)
+    qvel = torch.clamp(state.qvel + dt * qacc, -1e4, 1e4)
+    qpos = integrate_b(model, state.qpos, qvel, dt)
+    xpos, xquat, cvel = _kinematics_b(model, qpos, qvel)
+    return PhysicsState(qpos=qpos, qvel=qvel, qacc=qacc, act_torque=act_force, xpos=xpos, xquat=xquat, cvel=cvel,
+                        contact=contact, time=state.time + dt)
+
+
+def engine_forward_b(model: Model, params: DynParams, state: PhysicsState, dt, terrain: eng.Terrain | None = None):
+    """Recompute the derived quantities without integrating (mj_forward):
+    the FK caches from qpos, then qacc and the contacts at zero control."""
+    xpos, xquat, cvel = _kinematics_b(model, state.qpos, state.qvel)
+    state = dataclasses.replace(state, xpos=xpos, xquat=xquat, cvel=cvel)
+    ctrl = torch.zeros((state.qpos.shape[0], model.nu), device=state.qpos.device)
+    jac, chol, qacc_smooth, _ = _smooth_dynamics_b(model, params, state, ctrl, dt)
+    qacc, contact = _contacts_and_solve_b(model, state, jac, chol, qacc_smooth, terrain)
+    return dataclasses.replace(state, qacc=qacc, contact=contact, act_torque=torch.zeros_like(ctrl))

@@ -1,12 +1,13 @@
 """Engine tables, contact constants, terrain and its point queries, state
-construction and self-collision (the part of
-learninghumanoidwalking_tpu/physics/engine.py that the jvrc_walk, jvrc_step
-and jvrc_walk_rough paths need).
+construction and self-collision (the tables and queries of
+learninghumanoidwalking_tpu/physics/engine.py).
 
-The readable single-env engine of the JAX package (``engine.step``) is not
-ported yet; the batch path lives in physics/batched.py. The terrain queries
-here take a batch of envs with K query points each, where the JAX versions
-take one env and one point.
+The JAX package's engine step (``engine.step`` / ``engine.forward``, with
+its projected Jacobi contact solve) lives batch-leading in
+physics/batched.py as ``engine_step_b`` / ``engine_forward_b``, beside the
+helpers it shares with the kernels' plain version. The terrain queries here
+take a batch of envs with K query points each, where the JAX versions take
+one env and one point.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ critic's state_dicts, both Adam states (``mu`` and ``nu`` by parameter
 name, ``count``, ``notfinite_count``), the observation RunningNorm, the
 state of the trainer's ``Draws`` generator (None where the draws have no
 generator, as injected ones) and the iteration. The env batch is not kept:
-a resumed run starts from fresh envs, as in the JAX package.
+a resumed run starts from fresh envs, as in the JAX package. Nor are a
+recurrent policy's carries, which belong to the env batch: a resumed run
+starts them at zero (the target's, from ``PPO.init_state``).
 
 Layout under a run directory:
   checkpoints/<itr>.pt        a save at every evaluation

@@ -1,11 +1,15 @@
-"""Carry the JAX package's actor / critic parameters, RunningNorm
-statistics, motor-net parameters and whole checkpoints into the port.
+"""Carry the JAX package's actor / critic parameters (feed-forward and
+LSTM), RunningNorm statistics, motor-net parameters and whole checkpoints
+into the port.
 
 The JAX params arrive as numpy arrays flattened from flax's nested dict,
 keyed by "/"-joined paths such as ``params/MLPTrunk_0/Dense_1/kernel``.
 Flax Dense stores ``kernel`` as (in, out); nn.Linear.weight is (out, in), so
 every kernel is transposed (Adam's moments too, which have the params'
-layout).
+layout). A flax OptimizedLSTMCell keeps one kernel per gate
+(``LSTMCore_0/lstm<i>/{ii,if,ig,io}`` on the input, without bias,
+``{hi,hf,hg,ho}`` on the hidden state, with bias); the port stacks them in
+gate order i, f, g, o.
 """
 
 from __future__ import annotations
@@ -46,9 +50,31 @@ def _n_hidden(flat: dict) -> int:
     return len({k.split("/")[2] for k in flat if k.startswith("params/MLPTrunk_0/")})
 
 
+_GATES = "ifgo"
+_LSTM = "params/LSTMCore_0/"
+
+
+def _is_lstm(flat: dict) -> bool:
+    return any(k.startswith(_LSTM) for k in flat)
+
+
+def _lstm_core(flat: dict) -> dict:
+    """networks.LSTMCore's weights, prefixed ``core.``, from flax's per-gate kernels."""
+    out = {}
+    n_layers = len({k.split("/")[2] for k in flat if k.startswith(_LSTM)})
+    for i in range(n_layers):
+        cell = f"{_LSTM}lstm{i}/"
+        stack = lambda kind, leaf: np.concatenate([flat[f"{cell}{kind}{g}/{leaf}"] for g in _GATES], axis=-1)
+        out[f"core.cells.{i}.ih.weight"] = torch.as_tensor(np.ascontiguousarray(stack("i", "kernel").T), dtype=torch.float32)
+        out[f"core.cells.{i}.hh.weight"] = torch.as_tensor(np.ascontiguousarray(stack("h", "kernel").T), dtype=torch.float32)
+        out[f"core.cells.{i}.hh.bias"] = torch.as_tensor(stack("h", "bias"), dtype=torch.float32)
+    return out
+
+
 def actor_state_dict(flat: dict, action_dim: int, init_std: float = 0.223) -> dict:
-    """State dict for networks.GaussianActor from flattened flax params."""
-    out = _trunk(flat, _n_hidden(flat))
+    """State dict for networks.GaussianActor, or networks.GaussianLSTMActor
+    where the flax params hold an LSTM core, from flattened flax params."""
+    out = _lstm_core(flat) if _is_lstm(flat) else _trunk(flat, _n_hidden(flat))
     out.update(_dense(flat, "params/Dense_0", "mean"))
     if "params/log_std" in flat:
         out["log_std"] = torch.as_tensor(flat["params/log_std"], dtype=torch.float32)
@@ -58,8 +84,9 @@ def actor_state_dict(flat: dict, action_dim: int, init_std: float = 0.223) -> di
 
 
 def critic_state_dict(flat: dict) -> dict:
-    """State dict for networks.Critic from flattened flax params."""
-    out = _trunk(flat, _n_hidden(flat))
+    """State dict for networks.Critic, or networks.LSTMCritic where the
+    flax params hold an LSTM core, from flattened flax params."""
+    out = _lstm_core(flat) if _is_lstm(flat) else _trunk(flat, _n_hidden(flat))
     out.update(_dense(flat, "params/Dense_0", "value"))
     return out
 
@@ -104,7 +131,9 @@ def checkpoint_from_jax(tree: dict, action_dim: int, init_std: float = 0.223) ->
     ``critic_opt`` (optax apply_if_finite states: Adam's mu, nu and count,
     and notfinite_count), ``norm`` (mean, var, count) and ``iteration``.
     The JAX PRNG key has no torch counterpart: the checkpoint keeps no
-    generator state, and a trainer restoring it keeps its own generator."""
+    generator state, and a trainer restoring it keeps its own generator.
+    A recurrent run's tree converts the same way (its LSTM params and their
+    Adam moments); its carries are not in it, as in the JAX package."""
     to_actor = lambda flat: actor_state_dict(flat, action_dim, init_std)
     norm = tree["norm"]
     return dict(

@@ -1,12 +1,13 @@
 """Policy loading and replay (counterpart of learninghumanoidwalking_tpu/rl/eval.py).
 
-``load_policy`` rebuilds a run's env and actor from its experiment.json and
-a checkpoint (best.pt first); ``load_expert`` gives a frozen feed-forward
-expert for imitation; ``evaluate_policy`` replays the deterministic policy
+``load_policy`` rebuilds a run's env and actor (feed-forward or LSTM) from
+its experiment.json and a checkpoint (best.pt first); ``load_expert`` gives
+a frozen feed-forward expert for imitation and refuses a recurrent one, as
+the JAX package does; ``evaluate_policy`` replays the deterministic policy
 for a few episodes, run as one batch of envs through ``step_batch`` (on the
-card, through the control-step kernel), and writes each episode's qpos
-trajectory to an .npz. Rendering to video and the live viewer are not
-ported yet.
+card, through the control-step kernel), a recurrent policy with its carry,
+and writes each episode's qpos trajectory to an .npz. Rendering to video
+and the live viewer are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,16 +36,33 @@ class DeterministicPolicy:
         return self.actor(self.norm.normalize(obs))[0]
 
 
+class RecurrentPolicy:
+    """A deterministic LSTM policy with an explicit carry: ``init_carry(n)``
+    gives zero carries for n envs, ``apply(carry, obs) -> (carry, mean)``."""
+
+    def __init__(self, ppo: PPO, actor: torch.nn.Module, norm):
+        self._ppo = ppo
+        self.actor = actor
+        self.norm = norm
+
+    def init_carry(self, batch: int = 1) -> tuple:
+        return self._ppo.initial_carry(batch)
+
+    @torch.no_grad()
+    def apply(self, carry, obs: torch.Tensor):
+        carry, (mean, _) = self.actor(carry, self.norm.normalize(obs))
+        return carry, mean
+
+
 def load_policy(path: str | Path, best: bool = True, device: str | torch.device = "cuda"):
     """(policy, TrainState without env batch, (env, meta)) of the latest run
     under ``path`` (or the run ``path`` itself): best.pt if asked and
-    present, else the latest checkpoint."""
+    present, else the latest checkpoint. The policy is a DeterministicPolicy,
+    or a RecurrentPolicy for a recurrent run."""
     run_dir = find_latest_run(path)
     if run_dir is None:
         raise FileNotFoundError(f"no runs found under {path}")
     meta = Checkpointer.load_experiment(run_dir)
-    if meta.get("recurrent", False):
-        raise NotImplementedError(f"{run_dir} holds a recurrent policy; recurrent PPO is not ported yet (ROADMAP queue 1)")
     env = make_env(meta["env"], meta.get("json"), device=device)
     cfg = PPOConfig(
         num_envs=1,
@@ -54,6 +72,7 @@ def load_policy(path: str | Path, best: bool = True, device: str | torch.device 
         seed=meta.get("seed", 0) or 0,
         net_dtype=meta.get("net_dtype", "bfloat16"),
         hidden=tuple(meta.get("hidden", (256, 256))),
+        recurrent=meta.get("recurrent", False),
     )
     ppo = PPO(env, cfg, device=device)
     ck = Checkpointer(run_dir)
@@ -62,14 +81,16 @@ def load_policy(path: str | Path, best: bool = True, device: str | torch.device 
         ts = ck.restore(target, best=best)
     except FileNotFoundError:
         ts = ck.restore(target)
-    return DeterministicPolicy(ts.actor, ts.norm), ts, (env, meta)
+    policy = RecurrentPolicy(ppo, ts.actor, ts.norm) if cfg.recurrent else DeterministicPolicy(ts.actor, ts.norm)
+    return policy, ts, (env, meta)
 
 
 def load_expert(path: str | Path, best: bool = True, device: str | torch.device = "cuda"):
     """A frozen feed-forward expert for imitation: (policy, (env, meta)).
-    A recurrent expert is refused (load_policy raises), as in the JAX
-    package."""
+    A recurrent expert raises ValueError, as in the JAX package."""
     policy, _, (env, meta) = load_policy(path, best=best, device=device)
+    if meta.get("recurrent", False):
+        raise ValueError(f"imitation expert at {path} is recurrent; only FF experts are supported")
     return policy, (env, meta)
 
 
@@ -84,7 +105,8 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
     if out is not None and Path(out).suffix in (".mp4", ".gif"):
         raise NotImplementedError("rendering to video is not ported yet (ROADMAP queue 1: render and MJCF)")
     policy, _, (env, meta) = load_policy(path, device=device)
-    print(f"evaluating {meta['env']} policy from {path}", flush=True)
+    recurrent = isinstance(policy, RecurrentPolicy)
+    print(f"evaluating {meta['env']} policy from {path}" + (" (recurrent)" if recurrent else ""), flush=True)
     dev = torch.device(device)
     gens = []
     for ep in range(episodes):
@@ -97,8 +119,13 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
     length = torch.zeros(episodes, dtype=torch.int64, device=dev)
     qpos = []
     steps = 0
+    carry = policy.init_carry(episodes) if recurrent else None
     while steps < max_steps and bool(alive.any()):
-        state = env.step_batch(state, policy(state.obs), draws)
+        if recurrent:
+            carry, action = policy.apply(carry, state.obs)
+        else:
+            action = policy(state.obs)
+        state = env.step_batch(state, action, draws)
         steps += 1
         total = total + torch.where(alive, state.reward, 0.0)
         length = length + alive.long()

@@ -12,7 +12,10 @@ the last one, checkpoints each evaluation (marking the best), logs, and can
 trace iterations 2-4 with torch.profiler. The JAX ``scan``s are Python
 loops; the trainer state lives on ``device``.
 
-Not ported yet: recurrent policies.
+With ``recurrent``, the actor and critic are LSTMs whose carries ride along
+the persistent env batch (zeroed where an env finishes) and the update
+replays each minibatch of env sequences from the rollout's first carries
+(BPTT over the rollout window), as the JAX trainer's recurrent branch does.
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ class PPOConfig:
     eval_freq: int = 100
     input_norm_iters: int = 5
     seed: int = 0
+    # LSTM actor and critic (float32; net_dtype applies to the FF nets only)
+    recurrent: bool = False
     # "slice": contiguous minibatches of the (time-major, env-minor) batch
     # visited in a random order (the JAX default); "shuffle": a random
     # permutation of all samples per epoch
@@ -121,13 +126,17 @@ class Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    actor: networks.GaussianActor
-    critic: networks.Critic
+    actor: networks.GaussianActor | networks.GaussianLSTMActor
+    critic: networks.Critic | networks.LSTMCritic
     actor_opt: Adam
     critic_opt: Adam
     norm: RunningNorm
     env_state: EnvState  # batched (num_envs leading)
     iteration: int
+    # recurrent policies' carries, a tuple of (c, h) per layer, each
+    # (num_envs, hidden); None for FF policies
+    actor_carry: tuple | None = None
+    critic_carry: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -137,6 +146,11 @@ class Batch:
     log_probs: torch.Tensor  # (T, B)
     advantages: torch.Tensor  # (T, B)
     returns: torch.Tensor  # (T, B)
+    # recurrent extras (None for FF): episode ends and the rollout's first
+    # carries, from which the update replays the sequences
+    done: torch.Tensor | None = None  # (T, B)
+    actor_carry0: tuple | None = None
+    critic_carry0: tuple | None = None
 
 
 def _tree_where(pred: torch.Tensor, a, b):
@@ -148,6 +162,11 @@ def _tree_where(pred: torch.Tensor, a, b):
         return torch.where(pred.reshape(pred.shape + (1,) * (x.dim() - 1)), x, y)
 
     return tree_map(sel, a, b)
+
+
+def mask_carry(carry: tuple, done: torch.Tensor) -> tuple:
+    """Zero the carry rows of finished envs (a fresh hidden state per episode)."""
+    return tree_map(lambda x: torch.where(done[:, None], torch.zeros_like(x), x), carry)
 
 
 class PPO:
@@ -194,10 +213,16 @@ class PPO:
         if gen is None:
             gen = torch.Generator(device="cpu")
             gen.manual_seed(cfg.seed)
-        actor = networks.GaussianActor(
-            self.env.obs_size, self.env.action_size, cfg.hidden, cfg.std_dev, cfg.learn_std, self.net_dtype, gen
-        ).to(self.device)
-        critic = networks.Critic(self.env.obs_size, cfg.hidden, self.net_dtype, gen).to(self.device)
+        if cfg.recurrent:
+            actor = networks.GaussianLSTMActor(
+                self.env.obs_size, self.env.action_size, cfg.hidden, cfg.std_dev, cfg.learn_std, gen
+            ).to(self.device)
+            critic = networks.LSTMCritic(self.env.obs_size, cfg.hidden, gen).to(self.device)
+        else:
+            actor = networks.GaussianActor(
+                self.env.obs_size, self.env.action_size, cfg.hidden, cfg.std_dev, cfg.learn_std, self.net_dtype, gen
+            ).to(self.device)
+            critic = networks.Critic(self.env.obs_size, cfg.hidden, self.net_dtype, gen).to(self.device)
         if self.env.obs_mean is not None:
             norm = init_norm(None, self.env.obs_mean, self.env.obs_std, device=self.device)
         else:
@@ -210,7 +235,13 @@ class PPO:
             norm=norm,
             env_state=None,
             iteration=0,
+            actor_carry=self.initial_carry(cfg.num_envs) if cfg.recurrent else None,
+            critic_carry=self.initial_carry(cfg.num_envs) if cfg.recurrent else None,
         )
+
+    def initial_carry(self, batch: int) -> tuple:
+        """Zero LSTM carries for ``batch`` envs."""
+        return networks.LSTMCore.initial_carry(self.cfg.hidden, (batch,), self.device)
 
     # --------------------------------------------------------------- rollout
 
@@ -220,16 +251,27 @@ class PPO:
     def _value(self, critic, norm, obs):
         return critic(norm.normalize(obs))
 
+    def _reset_pool(self, ts: TrainState) -> EnvState:
+        """The iteration's reset pool, rotated across the batch by the iteration index."""
+        pool = self.env.reset_batch(self.cfg.num_envs, self.draws, ts.iteration)
+        shift = ts.iteration
+        return tree_map(lambda x: torch.roll(x, shift, dims=0) if torch.is_tensor(x) else x, pool)
+
+    def _sample_action(self, mean, log_std, deterministic: bool):
+        if deterministic:
+            return mean
+        return mean + torch.exp(log_std) * self.draws.normal("action", tuple(mean.shape), self.device)
+
     @torch.no_grad()
     def _rollout(self, ts: TrainState, deterministic: bool):
         """rollout_len steps over the persistent env batch. Envs that finish
         are replaced from a reset pool made once per iteration and rotated
         across the batch by the iteration index; V(s_t) is carried."""
+        if self.cfg.recurrent:
+            return self._rollout_recurrent(ts, deterministic)
         cfg = self.cfg
         n = cfg.num_envs
-        pool = self.env.reset_batch(n, self.draws, ts.iteration)
-        shift = ts.iteration
-        pool = tree_map(lambda x: torch.roll(x, shift, dims=0) if torch.is_tensor(x) else x, pool)
+        pool = self._reset_pool(ts)
         pool_values = self._value(ts.critic, ts.norm, pool.obs)
         value = self._value(ts.critic, ts.norm, ts.env_state.obs)
 
@@ -240,10 +282,7 @@ class PPO:
         for _ in range(cfg.rollout_len):
             obs = env_state.obs
             mean, log_std = self._policy(ts.actor, ts.norm, obs)
-            if deterministic:
-                action = mean
-            else:
-                action = mean + torch.exp(log_std) * self.draws.normal("action", tuple(mean.shape), self.device)
+            action = self._sample_action(mean, log_std, deterministic)
             log_prob = networks.gaussian_logp(mean, log_std, action)
 
             stepped = self.env.step_batch(env_state, action, self.draws)
@@ -263,6 +302,43 @@ class PPO:
             value = torch.where(done, pool_values, next_value)
         return env_state, {k: torch.stack(v) for k, v in traj.items()}
 
+    @torch.no_grad()
+    def _rollout_recurrent(self, ts: TrainState, deterministic: bool):
+        """The recurrent rollout: both carries ride along and are zeroed where
+        an env finishes. The bootstrap value of the pre-reset observation
+        comes from the critic on the stepped carry, which is then thrown
+        away (so the critic runs twice a step; V is not carried). The
+        trajectory keeps the rollout's first carries for the update and
+        its last ones (``final_carries``) for the next iteration."""
+        cfg = self.cfg
+        pool = self._reset_pool(ts)
+        env_state, a_carry, c_carry = ts.env_state, ts.actor_carry, ts.critic_carry
+        keys = ("obs", "action", "log_prob", "value", "next_value", "reward", "terminated", "done", "ep_steps")
+        traj = {k: [] for k in keys}
+        for _ in range(cfg.rollout_len):
+            obs = env_state.obs
+            nobs = ts.norm.normalize(obs)
+            a_carry2, (mean, log_std) = ts.actor(a_carry, nobs)
+            action = self._sample_action(mean, log_std, deterministic)
+            log_prob = networks.gaussian_logp(mean, log_std, action)
+            c_carry2, value = ts.critic(c_carry, nobs)
+
+            stepped = self.env.step_batch(env_state, action, self.draws)
+            _, next_value = ts.critic(c_carry2, ts.norm.normalize(stepped.obs))
+
+            terminated = stepped.done
+            truncated = (stepped.steps >= cfg.max_traj_len) & ~terminated
+            done = terminated | truncated
+
+            env_state = _tree_where(done, dataclasses.replace(pool, iteration=stepped.iteration), stepped)
+            a_carry, c_carry = mask_carry(a_carry2, done), mask_carry(c_carry2, done)
+            for k, x in zip(keys, (obs, action, log_prob, value, next_value, stepped.reward, terminated, done,
+                                   stepped.steps)):
+                traj[k].append(x)
+        traj = {k: torch.stack(v) for k, v in traj.items()}
+        traj.update(actor_carry0=ts.actor_carry, critic_carry0=ts.critic_carry, final_carries=(a_carry, c_carry))
+        return env_state, traj
+
     def _sample_iteration(self, ts: TrainState):
         env_state, traj = self._rollout(ts, deterministic=False)
         advantages, returns = compute_gae(
@@ -270,29 +346,82 @@ class PPO:
             self.cfg.gamma, self.cfg.lam,
         )
         advantages = (advantages - torch.mean(advantages)) / (torch.std(advantages, unbiased=False) + 1e-5)
+        recurrent = self.cfg.recurrent
         batch = Batch(
             obs=traj["obs"], actions=traj["action"], log_probs=traj["log_prob"],
-            advantages=advantages, returns=returns,
+            advantages=advantages, returns=returns, done=traj["done"] if recurrent else None,
+            actor_carry0=traj.get("actor_carry0"), critic_carry0=traj.get("critic_carry0"),
         )
         env_state = dataclasses.replace(env_state, iteration=env_state.iteration + 1)
         ts = dataclasses.replace(ts, env_state=env_state, iteration=ts.iteration + 1)
+        if recurrent:
+            a_carry, c_carry = traj["final_carries"]
+            ts = dataclasses.replace(ts, actor_carry=a_carry, critic_carry=c_carry)
 
         done_f = traj["done"].to(torch.float32)
         n_done = torch.sum(done_f)
+        # the recurrent trajectory keeps no episode returns: its episode
+        # reward is every reward over the episodes finished (as in JAX)
+        ep_sum = torch.sum(traj["reward"] if recurrent else traj["ep_return"])
         roll_metrics = dict(
             mean_reward=torch.mean(traj["reward"]),
             mean_episode_length=torch.sum(done_f * traj["ep_steps"]) / torch.clamp_min(n_done, 1.0),
             episodes_finished=n_done,
-            episode_reward=torch.sum(traj["ep_return"]) / torch.clamp_min(n_done, 1.0),
+            episode_reward=ep_sum / torch.clamp_min(n_done, 1.0),
         )
         return ts, batch, roll_metrics
 
     # ---------------------------------------------------------------- update
 
     def _loss_fn(self, actor, critic, norm, mb):
-        cfg = self.cfg
         obs, actions, old_log_probs, advantages, returns = mb
         mean, log_std = self._policy(actor, norm, obs)
+        values = critic(norm.normalize(obs))
+        if self.obs_mirror is not None:
+            mir_mean, _ = self._policy(actor, norm, obs @ self.obs_mirror.T)
+        else:
+            mir_mean = None
+        return self._loss_terms(obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean)
+
+    def _replay_sequences(self, actor, critic, nobs, done_prev, a_c, c_c):
+        """Run the nets over a (T, b, O) window of normalized observations
+        from carries (a_c, c_c), zeroing a row's carries after the step at
+        which its episode ended (``done_prev``). Returns (means, log_stds,
+        values); without ``critic`` (None), values is None."""
+        means, log_stds, values = [], [], []
+        for t in range(nobs.shape[0]):
+            a_c = mask_carry(a_c, done_prev[t])
+            a_c, (mean, log_std) = actor(a_c, nobs[t])
+            means.append(mean)
+            log_stds.append(log_std)
+            if critic is not None:
+                c_c = mask_carry(c_c, done_prev[t])
+                c_c, value = critic(c_c, nobs[t])
+                values.append(value)
+        return torch.stack(means), torch.stack(log_stds), torch.stack(values) if critic is not None else None
+
+    def _loss_recurrent(self, actor, critic, norm, mb):
+        """The loss over a minibatch of env sequences (T, b): the nets
+        replayed from the rollout's first carries. The mirror replay starts
+        from zero carries, as in the JAX trainer."""
+        obs, actions, old_log_probs, advantages, returns, done, a_c0, c_c0 = mb
+        done_prev = torch.cat([torch.zeros_like(done[:1]), done[:-1]], dim=0)
+        means, log_stds, values = self._replay_sequences(actor, critic, norm.normalize(obs), done_prev, a_c0, c_c0)
+        if self.obs_mirror is not None:
+            zero = tree_map(torch.zeros_like, a_c0)
+            mir_means, _, _ = self._replay_sequences(actor, None, norm.normalize(obs @ self.obs_mirror.T), done_prev,
+                                                     zero, None)
+        else:
+            mir_means = None
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+        return self._loss_terms(flat(obs), flat(actions), flat(old_log_probs), flat(advantages), flat(returns),
+                                flat(means), flat(log_stds), flat(values), None if mir_means is None else flat(mir_means))
+
+    def _loss_terms(self, obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean):
+        """Clipped surrogate, value MSE, entropy, mirror and imitation terms
+        over flat samples, from the nets' outputs (mir_mean: the policy on
+        mirrored observations, None without a mirror)."""
+        cfg = self.cfg
         log_probs = networks.gaussian_logp(mean, log_std, actions)
         ratio = torch.exp(log_probs - old_log_probs)
 
@@ -301,12 +430,10 @@ class PPO:
         actor_loss = -torch.mean(torch.minimum(surr1, surr2))
         clip_fraction = torch.mean((torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32))
 
-        values = critic(norm.normalize(obs))
         critic_loss = torch.mean(torch.square(returns - values))
         entropy = torch.mean(networks.gaussian_entropy(log_std))
 
-        if self.obs_mirror is not None:
-            mir_mean, _ = self._policy(actor, norm, obs @ self.obs_mirror.T)
+        if mir_mean is not None:
             mirror_loss = torch.mean(torch.square(mean - mir_mean @ self.act_mirror.T))
         else:
             mirror_loss = torch.zeros((), device=obs.device)
@@ -335,14 +462,14 @@ class PPO:
         """``epochs`` passes of minibatched updates. ``perms`` (one per
         epoch) fixes the minibatch order: for "slice", a permutation of the
         minibatch indices; for "shuffle", of all samples."""
+        if self.cfg.recurrent:
+            return self._update_recurrent(ts, batch, perms)
         cfg = self.cfg
         n = cfg.batch_size
         mb_size = min(cfg.minibatch_size, n)
         n_mb = max(n // mb_size, 1)
         flat = [x.reshape((n,) + tuple(x.shape[2:])) for x in
                 (batch.obs, batch.actions, batch.log_probs, batch.advantages, batch.returns)]
-        a_params = list(ts.actor.parameters())
-        c_params = list(ts.critic.parameters())
         sums: dict[str, torch.Tensor] = {}
         for epoch in range(cfg.epochs):
             if cfg.minibatch_scheme == "slice":
@@ -352,25 +479,59 @@ class PPO:
                 perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n, self.device)
                 index_sets = list(perm[: n_mb * mb_size].reshape(n_mb, mb_size))
             for idx in index_sets:
-                mb = tuple(x[idx] for x in flat)
-                total, aux = self._loss_fn(ts.actor, ts.critic, ts.norm, mb)
-                grads = torch.autograd.grad(total, a_params + c_params)
-                ts.actor_opt.step(list(grads[: len(a_params)]))
-                ts.critic_opt.step(list(grads[len(a_params) :]))
-                for k, v in aux.items():
-                    sums[k] = sums.get(k, 0.0) + v.detach()
+                self._minibatch_step(ts, self._loss_fn, tuple(x[idx] for x in flat), sums)
+        count = cfg.epochs * n_mb
+        return ts, {k: v / count for k, v in sums.items()}
+
+    def _minibatch_step(self, ts: TrainState, loss_fn, mb, sums: dict) -> None:
+        """One gradient step of both nets on ``mb``; adds the loss terms to ``sums``."""
+        a_params = list(ts.actor.parameters())
+        c_params = list(ts.critic.parameters())
+        total, aux = loss_fn(ts.actor, ts.critic, ts.norm, mb)
+        grads = torch.autograd.grad(total, a_params + c_params)
+        ts.actor_opt.step(list(grads[: len(a_params)]))
+        ts.critic_opt.step(list(grads[len(a_params) :]))
+        for k, v in aux.items():
+            sums[k] = sums.get(k, 0.0) + v.detach()
+
+    def _update_recurrent(self, ts: TrainState, batch: Batch, perms: list | None = None):
+        """``epochs`` passes over minibatches of env sequences (T, seq_mb),
+        each replayed from its envs' first carries. "slice": contiguous env
+        ranges in the order of ``perms[epoch]``, a permutation of the
+        ``n_mb`` ranges; "shuffle": ``perms[epoch]`` permutes the envs."""
+        cfg = self.cfg
+        n_envs = cfg.num_envs
+        seq_mb = max(min(cfg.minibatch_size // cfg.rollout_len, n_envs), 1)
+        n_mb = max(n_envs // seq_mb, 1)
+        seqs = (batch.obs, batch.actions, batch.log_probs, batch.advantages, batch.returns, batch.done)
+        sums: dict[str, torch.Tensor] = {}
+        for epoch in range(cfg.epochs):
+            if cfg.minibatch_scheme == "slice":
+                perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n_mb, self.device)
+                index_sets = [slice(int(i) * seq_mb, int(i) * seq_mb + seq_mb) for i in perm.tolist()]
+            else:
+                perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n_envs, self.device)
+                index_sets = list(perm[: n_mb * seq_mb].reshape(n_mb, seq_mb))
+            for idx in index_sets:
+                take = lambda x: x[idx]
+                mb = (*(x[:, idx] for x in seqs), tree_map(take, batch.actor_carry0), tree_map(take, batch.critic_carry0))
+                self._minibatch_step(ts, self._loss_recurrent, mb, sums)
         count = cfg.epochs * n_mb
         return ts, {k: v / count for k, v in sums.items()}
 
     def _optimize_iteration(self, ts: TrainState, batch: Batch, perms: list | None = None):
         ts, metrics = self._update(ts, batch, perms)
         with torch.no_grad():
-            _, log_std = self._policy(ts.actor, ts.norm, batch.obs[0, :1])
+            if self.cfg.recurrent:  # from a fresh carry of one env, as in JAX
+                _, (_, log_std) = ts.actor(self.initial_carry(1), ts.norm.normalize(batch.obs[0, :1]))
+            else:
+                _, log_std = self._policy(ts.actor, ts.norm, batch.obs[0, :1])
         metrics["mean_noise_std"] = torch.mean(torch.exp(log_std))
         return ts, metrics
 
     def _warmup_iteration(self, ts: TrainState) -> TrainState:
-        """Obs-norm warmup: rollout + Welford update, no learning."""
+        """Obs-norm warmup: rollout + Welford update, no learning. A
+        recurrent warmup leaves the TrainState's carries as they were."""
         env_state, traj = self._rollout(ts, deterministic=False)
         return dataclasses.replace(ts, env_state=env_state, norm=update_norm(ts.norm, traj["obs"]))
 
@@ -379,7 +540,8 @@ class PPO:
         """Deterministic evaluation from fresh resets: ``num_envs`` envs with
         their own reset pool for ``max_traj_len`` steps, episodes truncated
         at ``max_traj_len``, unfinished ones counted. Mean episode reward and
-        length (0-d tensors)."""
+        length (0-d tensors). A recurrent actor starts from zero carries,
+        zeroed again where an episode ends."""
         cfg = self.cfg
         n, dev = cfg.num_envs, self.device
         env_state = self.env.reset_batch(n, draws, ts.iteration)
@@ -387,8 +549,12 @@ class PPO:
         ep_ret = torch.zeros(n, device=dev)
         ep_len = torch.zeros(n, device=dev)
         ret_acc, len_acc, cnt = (torch.zeros((), device=dev) for _ in range(3))
+        a_carry = self.initial_carry(n) if cfg.recurrent else None
         for _ in range(cfg.max_traj_len):
-            mean, _ = self._policy(ts.actor, ts.norm, env_state.obs)
+            if cfg.recurrent:
+                a_carry, (mean, _) = ts.actor(a_carry, ts.norm.normalize(env_state.obs))
+            else:
+                mean, _ = self._policy(ts.actor, ts.norm, env_state.obs)
             stepped = self.env.step_batch(env_state, mean, draws)
             terminated = stepped.done
             done = terminated | ((stepped.steps >= cfg.max_traj_len) & ~terminated)
@@ -400,6 +566,8 @@ class PPO:
             ep_ret = torch.where(done, 0.0, ep_ret)
             ep_len = torch.where(done, 0.0, ep_len)
             env_state = _tree_where(done, dataclasses.replace(pool, iteration=stepped.iteration), stepped)
+            if cfg.recurrent:
+                a_carry = mask_carry(a_carry, done)
         ret_acc = ret_acc + torch.sum(ep_ret)
         len_acc = len_acc + torch.sum(ep_len)
         cnt = cnt + torch.sum((ep_len > 0).to(torch.float32))

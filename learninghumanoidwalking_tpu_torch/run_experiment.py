@@ -8,9 +8,10 @@ The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; ``cpu``
 only when asked, and ``cuda`` without a card is an error, never a
 fallback). Differences, each also in ``--help``: ``--json`` takes the place
 of ``--yaml`` (the port's configs are JSON); the log is JSON lines, not
-TensorBoard events; ``--recurrent``, ``--n-devices`` above 1, ``eval
---view`` and an ``--out`` of .mp4 / .gif raise NotImplementedError (ROADMAP
-queue 1: recurrent PPO, multi-device, render).
+TensorBoard events; ``--n-devices`` above 1, ``eval --view`` and an
+``--out`` of .mp4 / .gif raise NotImplementedError (ROADMAP queue 1:
+multi-device, render). ``--recurrent`` trains LSTM policies, stored in
+experiment.json as the JAX CLI stores it, and ``eval`` replays them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import tempfile
 from pathlib import Path
 
 NOT_PORTED = {
-    "recurrent": "--recurrent: recurrent PPO is not ported yet (ROADMAP queue 1, recurrent PPO)",
     "n_devices": "--n-devices > 1: multi-device training is not ported yet (ROADMAP queue 1, multi-device)",
     "view": "eval --view: the live viewer is not ported yet (ROADMAP queue 1, render and MJCF)",
 }
@@ -70,7 +70,7 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--mirror-coeff", type=float, default=0.4)
     p.add_argument("--eval-freq", type=int, default=100)
     p.add_argument("--continued", type=Path, default=None, help="logdir of a run to resume (its latest run with checkpoints)")
-    p.add_argument("--recurrent", action="store_true", help="not ported: raises NotImplementedError")
+    p.add_argument("--recurrent", action="store_true", help="LSTM actor and critic")
     p.add_argument("--imitate", type=str, default=None, help="logdir of an expert run to imitate")
     p.add_argument("--imitate-coeff", type=float, default=0.3)
     p.add_argument("--json", type=str, default=None, help="env config file (JSON; takes the place of the JAX CLI's --yaml)")
@@ -87,8 +87,6 @@ def train(argv) -> dict:
     TrainState, the per-iteration metrics and, with --continued, the run
     resumed and the iteration it resumed at."""
     args = build_train_parser().parse_args(argv)
-    if args.recurrent:
-        raise NotImplementedError(NOT_PORTED["recurrent"])
     if args.n_devices is not None and args.n_devices > 1:
         raise NotImplementedError(NOT_PORTED["n_devices"])
     device = resolve_device(args.device)
@@ -106,7 +104,7 @@ def train(argv) -> dict:
         minibatch_size=args.minibatch_size, epochs=args.epochs, num_envs=args.num_envs,
         rollout_len=args.rollout_len, max_traj_len=args.max_traj_len, max_grad_norm=args.max_grad_norm,
         mirror_coeff=args.mirror_coeff, use_mirror=not args.no_mirror, imitate_coeff=args.imitate_coeff,
-        eval_freq=args.eval_freq, seed=args.seed,
+        eval_freq=args.eval_freq, seed=args.seed, recurrent=args.recurrent,
     )
 
     run_dir = Path(args.logdir) / f"{args.env}-{datetime.datetime.now():%Y%m%d-%H%M%S-%f}"

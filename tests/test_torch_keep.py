@@ -1,11 +1,13 @@
 """What the port keeps of a training run, on the CPU: the deterministic
-evaluation rollout against the JAX trainer's, checkpoints (save, restore,
-resume), run discovery and the logger's tags.
+evaluation rollout against the JAX trainer's (feed-forward on h1, recurrent
+on cartpole), checkpoints (save, restore, resume; a recurrent run's too),
+run discovery and the logger's tags.
 
-Tolerances: evaluation metrics 1e-3 relative (episode sums of O(1) rewards
-over a few control steps from the same injected draws); a checkpoint's
-round trip and a resumed run exactly (the same float32 operations in the
-same order on the CPU); run discovery and tags exactly.
+Tolerances: evaluation metrics 1e-3 relative on h1 (episode sums of O(1)
+rewards over a few control steps with contacts from the same injected
+draws), 1e-5 relative on cartpole (smooth dynamics); a checkpoint's round
+trip and a resumed run exactly (the same float32 operations in the same
+order on the CPU); run discovery and tags exactly.
 """
 
 import dataclasses
@@ -17,11 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from learninghumanoidwalking_tpu.envs.cartpole import CartpoleEnv as JaxCartpoleEnv
 from learninghumanoidwalking_tpu.envs.h1_stand import H1StandEnv as JaxH1StandEnv
 from learninghumanoidwalking_tpu.rl import checkpoint as jcheckpoint
 from learninghumanoidwalking_tpu.rl import logger as jlogger
+from learninghumanoidwalking_tpu.rl import networks as jnets
 from learninghumanoidwalking_tpu.rl import normalize as jnorm
 from learninghumanoidwalking_tpu.rl import ppo as jppo
+from learninghumanoidwalking_tpu_torch.envs.cartpole import CartpoleEnv
 from learninghumanoidwalking_tpu_torch.envs.registry import make_env
 from learninghumanoidwalking_tpu_torch.rl import checkpoint, convert, logger, networks, ppo
 from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm
@@ -68,6 +73,7 @@ def test_eval_rollout_matches_jax():
     jts = jppo.TrainState(actor_params=a_params, critic_params=c_params, actor_opt=None, critic_opt=None, norm=jn,
                           env_state=None, key=jax.random.PRNGKey(0), iteration=jnp.asarray(7, jnp.int32))
     key = jax.random.PRNGKey(9)
+    jenv.reset_batch = jax.jit(jenv.reset_batch)  # one compile for the reset and the pool
     ref = {k: float(v) for k, v in j._eval_rollout(jts, key).items()}
 
     actor = networks.GaussianActor(tenv.obs_size, tenv.action_size)
@@ -86,6 +92,57 @@ def test_eval_rollout_matches_jax():
     assert ref["eval_mean_episode_length"] == got["eval_mean_episode_length"] == horizon
     np.testing.assert_allclose(got["eval_mean_reward"], ref["eval_mean_reward"], rtol=1e-3)
     assert all(len(v) == 0 for v in draws.queues.values())  # every injected draw was used
+
+
+class _JaxCartpoleEndsEvery3(JaxCartpoleEnv):
+    """Cartpole whose episodes also end every 3 steps (the evaluation's
+    carries are then zeroed mid-rollout)."""
+
+    def step(self, state, action):
+        s = super().step(state, action)
+        return s.replace(done=s.done | (s.steps % 3 == 0))
+
+
+class _CartpoleEndsEvery3(CartpoleEnv):
+    def step_batch(self, states, actions, draws=None):
+        s = super().step_batch(states, actions, draws)
+        return dataclasses.replace(s, done=s.done | (s.steps % 3 == 0))
+
+
+def test_recurrent_eval_rollout_matches_jax():
+    """PPO._eval_rollout of a recurrent policy (LSTM 2x8) on cartpole, 4
+    envs over 8 steps, episodes ending at steps 3 and 6 and truncated at 8:
+    the actor's carry starts at zero and is zeroed at each episode end, as
+    the JAX trainer's; the JAX evaluation's reset draws injected."""
+    from test_torch_cartpole import cartpole_reset_draws
+    from test_torch_recurrent import jax_recurrent_ppo, port_nets
+
+    hidden, n, horizon = (8, 8), 4, 8
+    jenv = _JaxCartpoleEndsEvery3()
+    kw = dict(num_envs=n, rollout_len=2, max_traj_len=horizon)
+    j = jax_recurrent_ppo(jenv, hidden, **kw)
+    t = ppo.PPO(_CartpoleEndsEvery3(device="cpu"), ppo.PPOConfig(recurrent=True, hidden=hidden, **kw), device="cpu")
+    ka, kc = jax.random.split(jax.random.PRNGKey(4))
+    zero = jnets.LSTMCore.initial_carry(hidden, (1,))
+    a_params = j.actor_def.init(ka, zero, jnp.zeros((1, 5)))
+    c_params = j.critic_def.init(kc, zero, jnp.zeros((1, 5)))
+    rng = np.random.default_rng(5)
+    jn = jnorm.RunningNorm(mean=jnp.asarray(rng.standard_normal(5).astype(np.float32) * 0.2),
+                           var=jnp.asarray(rng.uniform(0.3, 2, 5).astype(np.float32)), count=jnp.asarray(50.0))
+    jts = jppo.TrainState(actor_params=a_params, critic_params=c_params, actor_opt=None, critic_opt=None, norm=jn,
+                          env_state=None, key=jax.random.PRNGKey(0), iteration=jnp.asarray(3, jnp.int32))
+    key = jax.random.PRNGKey(8)
+    ref = {k: float(v) for k, v in jax.jit(j._eval_rollout)(jts, key).items()}
+
+    actor, _ = port_nets(a_params, c_params, 5, 1, hidden)
+    tts = ppo.TrainState(actor=actor, critic=None, actor_opt=None, critic_opt=None,
+                         norm=convert.running_norm(jn.mean, jn.var, jn.count), env_state=None, iteration=3)
+    k_env, _, k_pool = jax.random.split(key, 3)
+    draws = QueuedDraws(_queue(cartpole_reset_draws(jax.random.split(k_env, n)), cartpole_reset_draws(jax.random.split(k_pool, n))))
+    got = {k: float(v) for k, v in t._eval_rollout(tts, draws).items()}
+    assert ref["eval_mean_episode_length"] == got["eval_mean_episode_length"] == np.float32(8 / 3)  # 3 + 3 + 2 steps an env
+    np.testing.assert_allclose(got["eval_mean_reward"], ref["eval_mean_reward"], rtol=1e-5)
+    assert all(len(v) == 0 for v in draws.queues.values())
 
 
 def _small_trainer(seed: int = 0, **kw):
@@ -169,6 +226,36 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
     assert ts_c.iteration == 3
     assert torch.equal(ts_c.env_state.obs, ts_a.env_state.obs)
     for k in ("actor_loss", "critic_loss", "mean_reward"):
+        assert hist_c[0][k] == hist_a[2][k], k
+
+
+def test_recurrent_checkpoint_round_trip_and_resume(tmp_path):
+    """A recurrent run (cartpole, LSTM 2x8, no warmup): 2 iterations
+    checkpointed at each evaluation, restored into a fresh trainer's
+    init_state (another seed): params, both Adams, norm and iteration bit
+    for bit, the carries zero. With the env batch and the carries handed
+    over, 1 more iteration equals 3 in a row, exactly."""
+    kw = dict(num_envs=4, rollout_len=3, minibatch_size=6, epochs=1, hidden=(8, 8), max_traj_len=4, eval_freq=1,
+              input_norm_iters=0, recurrent=True)
+    trainer = lambda seed: ppo.PPO(make_env("cartpole", device="cpu"), ppo.PPOConfig(seed=seed, **kw), device="cpu")
+    ts_a, hist_a = trainer(0).train(3, verbose=False, evaluate=False)
+    b = trainer(0)
+    ck = checkpoint.Checkpointer(tmp_path)
+    ts_b, _ = b.train(2, verbose=False, checkpointer=ck)
+    assert ck.latest_iteration() == 1 and (tmp_path / "best.pt").exists()
+    assert all(float(x.abs().max()) > 0 for pair in ts_b.actor_carry + ts_b.critic_carry for x in pair)
+
+    c = trainer(3)
+    restored = ck.restore(c.init_state(), c.draws)
+    _assert_states_equal(restored, ts_b)
+    assert all(float(x.abs().max()) == 0 for pair in restored.actor_carry + restored.critic_carry for x in pair)
+    handed = dataclasses.replace(restored, env_state=ts_b.env_state, actor_carry=ts_b.actor_carry,
+                                 critic_carry=ts_b.critic_carry)
+    ts_c, hist_c = c.train(1, ts=handed, verbose=False, evaluate=False)
+    _assert_states_equal(ts_c, ts_a)
+    for x, y in zip(ts_c.actor_carry + ts_c.critic_carry, ts_a.actor_carry + ts_a.critic_carry):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+    for k in ("actor_loss", "critic_loss", "mean_reward", "episode_reward"):
         assert hist_c[0][k] == hist_a[2][k], k
 
 
