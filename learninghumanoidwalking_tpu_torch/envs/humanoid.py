@@ -4,8 +4,9 @@ learninghumanoidwalking_tpu/envs/humanoid.py).
 The JAX env vmaps per-env pure functions around a batch-in-lanes physics
 call; here every step is written over the batch. Physics runs through
 ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernels K1 (flat floor),
-K2 (terrain boxes), K3 (heightfield) or K4 (flat floor with the learned
-motor model) for CUDA tensors, their plain PyTorch version for CPU tensors.
+K2 (terrain boxes), K3 (heightfield), K4 (flat floor with the learned
+motor model), K5 or K6 (terrain boxes or heightfield with the motor model)
+for CUDA tensors, their plain PyTorch version for CPU tensors.
 No batch size routes the card back to the plain version.
 
 Ported: action smoothing and nominal-pose offsets, the PD substep loop,
@@ -14,7 +15,7 @@ and per-group observation noise, reset with settle substeps, per-env
 terrain from the task (``_terrain`` hook), PD-gain and back-EMF
 randomization (``pdrand_k``, ``sim_bemf``), dynamics randomization and
 perturbation wrenches (all sampled from a ``Draws`` source), non-finite
-termination.
+termination, the rangefinder array.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
 from learninghumanoidwalking_tpu_torch.ops.substep_kernel import pd_substeps_kernel
 from learninghumanoidwalking_tpu_torch.physics import engine, interface
+from learninghumanoidwalking_tpu_torch.physics import rangefinder as rangefinder_mod
 from learninghumanoidwalking_tpu_torch.physics.model import DynParams, default_dyn_params, tree_map
 from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
 from learninghumanoidwalking_tpu_torch.utils import maths
@@ -334,6 +336,17 @@ class HumanoidEnv(Env):
             reward_components=components,
             done=done,
             steps=state.steps + 1,
+        )
+
+    def rangefinder(self, states: EnvState, num_rows: int = 4, num_cols: int = 4, spacing: float = 0.4) -> torch.Tensor:
+        """(B, rows x cols) downward ray distances under the root body, -1
+        where nothing is hit (physics/rangefinder.py; JAX
+        envs/humanoid.py:376-387): the reference's optional rangefinder
+        array, which no shipped config reads."""
+        sites = rangefinder_mod.site_grid(num_rows, num_cols, spacing)
+        physics = states.physics
+        return rangefinder_mod.rangefinder(
+            physics.xpos[:, self.root_idx], physics.xquat[:, self.root_idx], self._terrain(states.task), sites
         )
 
     # ----------------------------------------------------- hooks (override)

@@ -1,7 +1,9 @@
 """Environment registry (counterpart of learninghumanoidwalking_tpu/envs/registry.py).
 
-Ported so far: cartpole, jvrc_walk, jvrc_step, jvrc_walk_rough, h1 and
-h1_walk; the JAX package's MJCF-built envs are not ported yet.
+Every env of the JAX package: cartpole, jvrc_walk, jvrc_step,
+jvrc_walk_rough, h1, h1_walk, and ``mjcf:<path>`` (a walking env built from
+an MJCF robot file, envs/mjcf_env.py, with its JSON robot file as
+``path_to_json``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ ENVIRONMENTS: dict[str, tuple[str, str]] = {
 
 
 def make_env(name: str, path_to_json: str | None = None, device="cuda"):
+    if name.startswith("mjcf:"):
+        cls = getattr(importlib.import_module("learninghumanoidwalking_tpu_torch.envs.mjcf_env"), "MjcfWalkEnv")
+        return cls(name[len("mjcf:"):], path_to_json, device=device)
     if name not in ENVIRONMENTS:
-        raise ValueError(f"unknown env {name!r}; ported: {sorted(ENVIRONMENTS)}")
+        raise ValueError(f"unknown env {name!r}; available: {sorted(ENVIRONMENTS)} or mjcf:<path>")
     module_name, cls_name = ENVIRONMENTS[name]
     cls = getattr(importlib.import_module(module_name), cls_name)
     return cls(path_to_json, device=device)

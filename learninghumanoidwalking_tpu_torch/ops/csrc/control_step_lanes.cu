@@ -1,9 +1,9 @@
-// K1-K4: control step — frame_skip PD + rigid-body physics substeps per
+// K1-K6: control step — frame_skip PD + rigid-body physics substeps per
 // env in ONE launch, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by make_control_step in
 // learninghumanoidwalking_tpu/ops/substep_kernel.py (its pl.pallas_call at
-// :1296) in its four variants, from three builds of this one source:
+// :1296) in its six variants, from four builds of this one source:
 //   flat (LHW_TERRAIN 0): K1, the flat floor, 8 contact slots, the (z, x, y)
 //     frame; the factorization reused over groups of R substeps;
 //   terrain (LHW_TERRAIN 1, the default): K2 (terrain boxes) and K3
@@ -12,8 +12,12 @@
 //     per-env terrain inputs, tilted contact frames and the contact normals
 //     as output; R=1;
 //   motor (LHW_TERRAIN 0, LHW_MOTOR 1): K4, the flat floor at R=1 plus the
-//     learned motor hook of substep_kernel.py:1036-1102 (see "Motor" below).
-// (No terrain + motor build exists; the wrapper refuses that model.) It
+//     learned motor hook of substep_kernel.py:1036-1102 (see "Motor" below);
+//   terrain + motor (LHW_TERRAIN 1, LHW_MOTOR 1): K5 (terrain boxes) and K6
+//     (heightfield) with the motor hook, the terrain build's contacts and
+//     K4's nets, the histories in the env's fixed region before its terrain
+//     (make_control_step with terrain and motor=, substep_kernel.py:1331,
+//     :1360-1375). It
 // computes what that kernel and its plain twin
 // physics/batched.py::pd_substeps_batched compute; the plain PyTorch
 // version in this package (physics/batched.py, the dense contact solve, and
@@ -40,8 +44,9 @@
 // the basis's linear part is taken about the foot body rather than the
 // world origin (basis_at). In the flat build G and LG's factorization are
 // float64 too (a 5-dof leg leaves G near singular; see the refresh); the
-// terrain and motor builds, which run JVRC's 6-dof legs only, keep them
-// float32. Factors keep their diagonal's reciprocals, so
+// terrain, motor and terrain + motor builds, which run JVRC's 6-dof legs
+// only, keep them float32 (the wrapper refuses a shorter leg in the terrain
+// + motor build). Factors keep their diagonal's reciprocals, so
 // the solves multiply instead of divide (float64 division is slow).
 //
 // Factorization reuse (the flat build at R > 1: physics/batched.py's
@@ -73,7 +78,8 @@
 //    loop at GRP = 1.
 //  - THE WORKING SET IN SHARED MEMORY, not thread-local memory: each env
 //    owns a fixed region (offsets E_* from the caps below; 8.75 KB on
-//    terrain, 7.6 KB flat, 10.7 KB with the motor histories) plus its
+//    terrain, 7.6 KB flat, 10.7 KB with the motor histories on the flat
+//    floor, 11.95 KB with them on terrain) plus its
 //    terrain, in dynamic shared memory (above 48 KB by opt-in). It holds the
 //    kinematics, M's factor, the basis solves Y, G and LG, Chat, K and its
 //    factor; the dynamics, refresh, contact phases and motor nets reuse one
@@ -138,10 +144,7 @@
 #define LHW_TERRAIN 1  // 1: the terrain build (K2, K3); 0: the flat floor (K1, K4)
 #endif
 #ifndef LHW_MOTOR
-#define LHW_MOTOR 0    // 1: the motor hook (K4)
-#endif
-#if LHW_TERRAIN && LHW_MOTOR
-#error "no terrain + motor build: the motor hook runs on the flat floor"
+#define LHW_MOTOR 0    // 1: the motor hook (K4; with LHW_TERRAIN, K5 and K6)
 #endif
 #ifndef LHW_G
 #define LHW_G 16  // lanes per env (a power of two, at most 32)
@@ -302,7 +305,15 @@
 static_assert(W_NET + MAX_HID + 2 * MAX_H <= W_SIZE, "motor scratch past the union");
 #endif
 #if LHW_TERRAIN
-#define SM_FIXED (E_WORK + W_SIZE)     // the terrain follows: 8 nt box floats, H W + 4 heightfield floats, floor_z
+#if LHW_MOTOR
+// the motor histories as rings, then the terrain (past SM_FIXED)
+#define E_QDH (E_WORK + W_SIZE)        // [joint][slot] joint velocities
+#define E_CTH (E_QDH + MAX_U * MAX_H)  // [joint][slot] commanded torques
+#define SM_FIXED (E_CTH + MAX_U * MAX_H)
+#else
+#define SM_FIXED (E_WORK + W_SIZE)
+#endif
+// the terrain follows SM_FIXED: 8 nt box floats, H W + 4 heightfield floats, floor_z
 #else
 // the flat floor stages no terrain; what a refresh leaves for the substeps
 // of its reuse group (besides M's factor, G and LG above) sits past the
@@ -329,7 +340,9 @@ static_assert(E_DINV % 2 == 0 && E_WORK % 2 == 0 && W_KW % 2 == 0 && W_LK % 2 ==
 static_assert(W_KW >= W_Y + MAX_K * MAX_V, "G's float64 factorization overlaps Y");
 #endif
 
-#if LHW_TERRAIN
+#if LHW_TERRAIN && LHW_MOTOR
+#define LHW_KERNEL control_step_terrain_motor_kernel
+#elif LHW_TERRAIN
 #define LHW_KERNEL control_step_terrain_kernel
 #elif LHW_MOTOR
 #define LHW_KERNEL control_step_motor_kernel
@@ -1738,8 +1751,8 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
 // plan from it and keeps no copy: caps, lanes per env, the most threads a
 // block, table sizes, every offset, the dof-kind and slot-kind codes, and
 // the floats of an env's fixed shared region, as (name, value) pairs; the
-// flat-floor builds add the offsets of the lagged basis, the motor build
-// LHW_MOTOR, its caps and the offsets of its histories.
+// flat-floor builds add the offsets of the lagged basis, the motor builds
+// (K4; K5 and K6) LHW_MOTOR, its caps and the offsets of its histories.
 #define LHW_LAYOUT_COMMON(X)                                                                     \
   X(LHW_TERRAIN) X(LHW_G) X(LHW_TPB) X(MAX_B) X(MAX_V) X(MAX_Q) X(MAX_U) X(MAX_C) X(MAX_T)       \
   X(MAX_HF) X(MAX_F) X(N_FTAB) X(N_ITAB) X(SM_FIXED)                                             \
@@ -1752,7 +1765,9 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
   X(F_SGPOS) X(F_SGROT) X(F_SCORN) X(F_MU)                                                       \
   X(DOF_FREE_LIN) X(DOF_FREE_ANG) X(DOF_HINGE) X(DOF_SLIDE)                                    \
   X(SLOT_FLAT) X(SLOT_FLOOR) X(SLOT_HFIELD) X(SLOT_BOX)
-#if LHW_TERRAIN
+#if LHW_TERRAIN && LHW_MOTOR
+#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS) X(E_QDH) X(E_CTH)
+#elif LHW_TERRAIN
 #define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X)
 #elif LHW_MOTOR
 #define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(E_SREF) X(E_OREF) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS) X(E_QDH) X(E_CTH)
@@ -1779,8 +1794,8 @@ extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
 // signature is the same in every build up to the build's own arguments: the
 // motor build's (the stacked weights, the layer count and the two hidden
 // widths, the histories (nu * MAX_H, B) and the int32 count (1, B) in and
-// out), then the launch plan, before the stream: envs a block and the floats
-// of an env's shared region (even, at least SM_FIXED, plus its terrain on
+// out; the terrain + motor build the same), then the launch plan, before the
+// stream: envs a block and the floats of an env's shared region (even, at least SM_FIXED, plus its terrain on
 // terrain), from the wrapper's launch_plan. On terrain floor_z is required,
 // the box blocks when the model has terrain boxes and the heightfield blocks
 // (hf_h, hf_w >= 2) when it has heightfield slots; the flat-floor builds
@@ -1820,16 +1835,15 @@ extern "C" int lhw_control_step(
   dim3 block(envs_per_block * GRP);
   dim3 grid((batch + envs_per_block - 1) / envs_per_block);
   LHW_KERNEL<<<grid, block, smem, (cudaStream_t)stream>>>(
-#if LHW_TERRAIN
-      batch, frame_skip, settle, dt, envs_per_block, env_stride, (const float*)ftab, (const int*)itab,
-#else
-      batch, frame_skip, settle, dt, envs_per_block, env_stride, reuse,
+      batch, frame_skip, settle, dt, envs_per_block, env_stride,
+#if !LHW_TERRAIN
+      reuse,
+#endif
 #if LHW_MOTOR
       (const float*)motor_w, motor_layers, motor_hid0, motor_hid1, (const float*)qd_hist, (const float*)ct_hist,
       (const int*)count, (float*)qd_hist_out, (float*)ct_hist_out, (int*)count_out,
 #endif
       (const float*)ftab, (const int*)itab,
-#endif
       (const float*)qpos, (const float*)qvel, (const float*)target, (const float*)kp,
       (const float*)kd, (const float*)bemf, (const float*)damping, (const float*)frictionloss,
       (const float*)body_mass, (const float*)body_ipos, (const float*)xfrc,

@@ -1,4 +1,4 @@
-// Device helpers of control_step_lanes.cu (K1-K4): NaN-propagating max/min (never
+// Device helpers of control_step_lanes.cu (K1-K6): NaN-propagating max/min (never
 // fmaxf/fminf: the env layer terminates non-finite envs, so NaN must
 // propagate), 3-vector cross product and the quaternion algebra of
 // physics/batched.py (w, x, y, z order).

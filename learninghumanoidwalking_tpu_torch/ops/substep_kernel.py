@@ -1,16 +1,19 @@
-"""Kernels K1 (flat floor), K2 (terrain boxes), K3 (heightfield) and K4
-(learned motor hook, flat floor): the wrapper over csrc/control_step_lanes.cu.
+"""Kernels K1 (flat floor), K2 (terrain boxes), K3 (heightfield), K4
+(learned motor hook, flat floor), K5 (terrain boxes and the motor hook) and
+K6 (heightfield and the motor hook): the wrapper over
+csrc/control_step_lanes.cu.
 
 Replaces the Pallas TPU kernel of learninghumanoidwalking_tpu/ops/
 substep_kernel.py (``make_control_step``, its ``pl.pallas_call``). One
 launch runs all ``frame_skip`` PD + physics substeps of every env, on a
 group of lanes per env with its working set in shared memory and the Pallas
-kernel's Woodbury contact solve, launched by ``launch_plan``. Three
+kernel's Woodbury contact solve, launched by ``launch_plan``. Four
 libraries built from that one source: "flat" (K1: 8 contact slots, the
 factorization reused over groups of R substeps), "terrain" (K2 and K3: 16
 contact slots, a slot-kind table, per-env terrain inputs staged in shared
-memory, R=1) and "motor" (K4: the flat floor at R=1 plus the motor hook,
-its histories and count in and out).
+memory, R=1), "motor" (K4: the flat floor at R=1 plus the motor hook,
+its histories and count in and out) and "terrain_motor" (K5 and K6: the
+terrain build plus the motor hook).
 
 ``pd_substeps_kernel`` has the signature of the plain version,
 physics/batched.py::pd_substeps_batched, and returns the same
@@ -45,14 +48,15 @@ from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
 from learninghumanoidwalking_tpu_torch.robots.motor import HIST_LEN, MotorState
 
 # build name, sources and preprocessor defines of each library; K2 and K3
-# share "terrain"
+# share "terrain", K5 and K6 "terrain_motor"
 LIBRARIES = {
     "flat": ("lhw_control_step_flat", ("control_step_lanes.cu",), ("-DLHW_TERRAIN=0",)),
     "terrain": ("lhw_control_step_terrain", ("control_step_lanes.cu",), ()),
     "motor": ("lhw_control_step_motor", ("control_step_lanes.cu",), ("-DLHW_TERRAIN=0", "-DLHW_MOTOR=1")),
+    "terrain_motor": ("lhw_control_step_terrain_motor", ("control_step_lanes.cu",), ("-DLHW_TERRAIN=1", "-DLHW_MOTOR=1")),
 }
 # the library each kernel runs from
-LIBRARY_OF = {"K1": "flat", "K2": "terrain", "K3": "terrain", "K4": "motor"}
+LIBRARY_OF = {"K1": "flat", "K2": "terrain", "K3": "terrain", "K4": "motor", "K5": "terrain_motor", "K6": "terrain_motor"}
 
 
 class LaunchCounter:
@@ -66,19 +70,26 @@ class LaunchCounter:
         self.launches = 0
 
 
-counters = {"K1": LaunchCounter(), "K2": LaunchCounter(), "K3": LaunchCounter(), "K4": LaunchCounter()}
+counters = {name: LaunchCounter() for name in LIBRARY_OF}
 
 
 def variant(model: Model, hfield: bool, motor: bool = False) -> str:
     """Which kernel runs ``model``: K2 with terrain boxes, K3 with a
-    heightfield and no boxes, K4 with a motor model on the flat floor,
-    else K1. (A motor model on terrain has no build: check_model refuses
-    it.)"""
+    heightfield and no boxes, K1 on the flat floor; with a motor model K5,
+    K6 and K4 in their places."""
     if model.nterrain > 0:
-        return "K2"
+        return "K5" if motor else "K2"
     if hfield:
-        return "K3"
+        return "K6" if motor else "K3"
     return "K4" if motor else "K1"
+
+
+def leg_dofs(model: Model) -> list[int]:
+    """Per foot body, the joint dofs on its path to the root that are not
+    the floating base's: JVRC-1 6 a leg, Unitree H1 5."""
+    anc = _tables(model)["anc"] > 0.5
+    feet = dict.fromkeys(model.geom_body[g] for g in model.foot_geoms)
+    return [sum(1 for d in range(model.nv) if anc[f, d] and model.jnt_type[model.dof_body[d]] != FREE) for f in feet]
 
 
 def motor_dims(params: dict) -> list[int]:
@@ -90,18 +101,22 @@ def motor_dims(params: dict) -> list[int]:
 def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, motor: dict | None = None) -> None:
     """Raise unless the library of table layout ``lay`` runs ``model`` (with
     a heightfield of ``hfield_shape`` (H, W) if given, and the motor-net
-    params ``motor`` if given): within its caps, on terrain only in the
-    terrain build, with a motor model only in the motor build, on the flat
-    floor (no terrain + motor build exists)."""
+    params ``motor`` if given): within its caps, on terrain only in a
+    terrain build, with a motor model only in a motor build (on the flat
+    floor the motor build, K4; on terrain the terrain + motor build, K5 and
+    K6). The terrain + motor build keeps the contact basis's Gram in
+    float32, which holds for 6-dof legs (JVRC-1) only: it refuses a model
+    with a shorter leg (Unitree H1's 5-dof legs leave the Gram near
+    singular; the flat build factorizes it in float64)."""
     fb = {model.geom_body[g] for g in model.foot_geoms}
     problems = []
     on_terrain = bool(model.nterrain) or hfield_shape is not None
     if motor is not None:
-        if on_terrain:
-            problems.append("a motor model on terrain needs a terrain + motor build of kernel K4, which is not built")
+        if on_terrain and not (lay["LHW_TERRAIN"] and lay.get("LHW_MOTOR")):
+            problems.append("a motor model on terrain needs the terrain + motor build (K5, K6)")
         if not lay.get("LHW_MOTOR"):
-            problems.append("motor models need the motor build (K4)")
-        elif not on_terrain:
+            problems.append("motor models need a motor build (K4 on the flat floor, K5 or K6 on terrain)")
+        else:
             dims, nu = motor_dims(motor), model.nu
             shapes_ok = all(
                 tuple(motor[f"w{li}"].shape) == (nu, dims[li], dims[li + 1])
@@ -114,6 +129,10 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
                 problems.append(f"motor nets {dims} exceed {lay['MAX_LAYERS']} layers of width {lay['MAX_HID']}")
     if on_terrain and not lay["LHW_TERRAIN"]:
         problems.append("terrain and heightfield models need the terrain build (K2, K3)")
+    legs = leg_dofs(model) if lay["LHW_TERRAIN"] and lay.get("LHW_MOTOR") else []
+    if min(legs, default=6) < 6:
+        problems.append(f"legs of {legs} dofs below the floating base: the terrain + motor build's float32 "
+                        "basis Gram holds for 6-dof legs only")
     if model.nterrain > lay["MAX_T"]:
         problems.append(f"{model.nterrain} terrain boxes exceed the cap {lay['MAX_T']}")
     if hfield_shape is not None and (min(hfield_shape) < 2 or hfield_shape[0] * hfield_shape[1] > lay["MAX_HF"]):
@@ -276,7 +295,7 @@ def launch_plan(model: Model, batch: int, lay: dict, hfield_shape: tuple | None 
     many as leave BLOCKS_PER_SM blocks an SM room in shared memory
     (at most LHW_TPB threads); each env's region of ``env_floats`` floats
     (its fixed part SM_FIXED, which holds the lagged basis on the flat floor
-    and the motor histories in the motor build, and on terrain its terrain;
+    and the motor histories in the motor builds, and on terrain its terrain;
     even, for its float64 arrays, and not a multiple of 32, so that the envs
     of a warp start in different banks); ``smem_bytes`` of dynamic shared
     memory a block beside ``static_bytes`` of tables; ``grid`` blocks, the
@@ -310,8 +329,8 @@ _LIBS: dict = {}
 
 
 def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
-    """Build (first use) and load library ``build_name`` ("flat", "terrain"
-    or "motor"); (library, its table layout)."""
+    """Build (first use) and load library ``build_name`` (a key of
+    LIBRARIES); (library, its table layout)."""
     if build_name not in _LIBS:
         path, _ = build.build_library(*LIBRARIES[build_name])
         lib = build.load_library(path)
@@ -323,7 +342,7 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
         lay = {names[k].decode(): values[k] for k in range(n)}
-        # before the stream, the motor build takes the motor arguments, and
+        # before the stream, the motor builds take the motor arguments, and
         # every build its launch plan (envs a block, env stride)
         own_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
         own_args = own_args + [ctypes.c_int] * 2
@@ -337,7 +356,7 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
 
 
 def build_all() -> dict:
-    """Build the three libraries at once (one nvcc each, started together)
+    """Build the four libraries at once (one nvcc each, started together)
     and load them; {build name: (nvcc seconds of this call, library path,
     ptxas's registers / stack frame / spill lines)}."""
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
@@ -406,7 +425,7 @@ def control_step_launch(
     model: Model, inputs: dict, frame_skip: int, sim_dt: float, settle: bool, reuse: int,
     terrain: dict | None = None, hfield_shape: tuple | None = None, motor: dict | None = None,
 ) -> dict:
-    """Launch K1, K2, K3 or K4 on trailing-batch (rows, B) float32 CUDA
+    """Launch K1-K6 on trailing-batch (rows, B) float32 CUDA
     tensors (``terrain``: the blocks of terrain_blocks, with ``hfield_shape``
     (H, W) where there is a heightfield; ``motor``: the blocks of
     motor_blocks); returns the 12 outputs as (rows, B) tensors, with a motor
@@ -426,7 +445,8 @@ def control_step_launch(
         xfrc=6 * model.nbody, terrain_pos=3 * nt, terrain_size=3 * nt, terrain_cos=nt, terrain_sin=nt,
         floor_z=1, hfield=hw, hf_x0y0=2, hf_cell=2,
     )
-    needed = {"K1": (), "K2": TERRAIN_KEYS[:5], "K3": ("floor_z", "hfield", "hf_x0y0", "hf_cell"), "K4": ()}[name]
+    boxes, hfield = TERRAIN_KEYS[:5], ("floor_z", "hfield", "hf_x0y0", "hf_cell")
+    needed = {"K1": (), "K2": boxes, "K3": hfield, "K4": (), "K5": boxes, "K6": hfield}[name]
     missing = [k for k in needed if terrain.get(k) is None]
     if missing:
         raise ValueError(f"{name} needs terrain inputs {missing}")
@@ -486,7 +506,8 @@ def kernel_reuse(terrain: Terrain | None, reuse_interval: int, motor: bool = Fal
     """The factorization-reuse interval R a step runs at: as asked on the
     flat floor without a motor model (K1), 1 on terrain boxes or a
     heightfield (K2, K3) and with a motor model (K4), as the reference pins
-    them (learninghumanoidwalking_tpu/ops/substep_kernel.py:1360-1368)."""
+    them (learninghumanoidwalking_tpu/ops/substep_kernel.py:1360-1368), and
+    so on terrain with a motor model (K5, K6)."""
     return reuse_interval if terrain is None and not motor else 1
 
 
@@ -504,14 +525,15 @@ def pd_substeps_kernel(
 ):
     """Drop-in for physics/batched.py::pd_substeps_batched through K1, K2,
     K3 or (``motor``: a (motor params, MotorState) pair, returning
-    (PhysicsState, MotorState)) K4, at the reuse interval of kernel_reuse on
-    both paths.
+    (PhysicsState, MotorState)) K4, K5, K6, at the reuse interval of
+    kernel_reuse on both paths.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     device = physics.qpos.device
     hfield_shape = tuple(terrain.hfield.shape[1:]) if terrain is not None and terrain.hfield is not None else None
     name = variant(model, hfield_shape is not None, motor is not None)
-    if (name == "K2") != (terrain is not None and terrain.pos.shape[1] > 0) or (name in ("K1", "K4") and terrain is not None):
+    boxes = terrain is not None and terrain.pos.shape[1] > 0
+    if (name in ("K2", "K5")) != boxes or (name in ("K1", "K4") and terrain is not None):
         raise ValueError(f"terrain does not fit the model ({model.nterrain} terrain boxes, heightfield {hfield_shape})")
     reuse_interval = kernel_reuse(terrain, reuse_interval, motor is not None)
     if device.type == "cpu":

@@ -2,6 +2,7 @@
 run_experiment.py for the JAX package).
 
   python -m learninghumanoidwalking_tpu_torch.run_experiment train --env h1 --logdir logs
+  python -m learninghumanoidwalking_tpu_torch.run_experiment train --env mjcf:robot.xml --json robot.json
   python -m learninghumanoidwalking_tpu_torch.run_experiment eval --path logs --out traj.npz
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; ``cpu``
@@ -12,6 +13,10 @@ TensorBoard events; ``--n-devices`` above 1, ``eval --view`` and an
 ``--out`` of .mp4 / .gif raise NotImplementedError (ROADMAP queue 1:
 multi-device, render). ``--recurrent`` trains LSTM policies, stored in
 experiment.json as the JAX CLI stores it, and ``eval`` replays them.
+``--env mjcf:<path>`` builds a walking env from an MJCF robot file, whose
+JSON robot file ``--json`` names; experiment.json keeps both as absolute
+paths, so that ``eval --path`` and ``--continued`` build the same env. A
+model past the kernel's caps raises the kernel's message on ``cuda``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from pathlib import Path
 
 NOT_PORTED = {
     "n_devices": "--n-devices > 1: multi-device training is not ported yet (ROADMAP queue 1, multi-device)",
-    "view": "eval --view: the live viewer is not ported yet (ROADMAP queue 1, render and MJCF)",
+    "view": "eval --view: the live viewer is not ported yet (ROADMAP queue 1, render)",
 }
 
 
@@ -49,7 +54,9 @@ def system_banner(device) -> None:
 
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("train", description="Train a policy with PPO (the JAX CLI's flags; see the differences noted per flag).")
-    p.add_argument("--env", required=True, type=str)
+    p.add_argument("--env", required=True, type=str,
+                   help="a registered env (jvrc_walk, jvrc_step, jvrc_walk_rough, h1, h1_walk, cartpole) or mjcf:<path to an "
+                        "MJCF robot file>, whose robot roles --json names (schema: envs/configs/mjcf_base.json)")
     p.add_argument("--logdir", default=Path(tempfile.gettempdir()) / "logs", type=Path)
     p.add_argument("--n-itr", type=int, default=20000)
     p.add_argument("--lr", type=float, default=3e-4)
@@ -73,7 +80,7 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--recurrent", action="store_true", help="LSTM actor and critic")
     p.add_argument("--imitate", type=str, default=None, help="logdir of an expert run to imitate")
     p.add_argument("--imitate-coeff", type=float, default=0.3)
-    p.add_argument("--json", type=str, default=None, help="env config file (JSON; takes the place of the JAX CLI's --yaml)")
+    p.add_argument("--json", type=str, default=None, help="env config file (JSON; takes the place of the JAX CLI's --yaml); with --env mjcf:<path>, the robot file")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-devices", type=int, default=None, help="one device only: a value above 1 raises NotImplementedError")
     p.add_argument("--profile-dir", type=Path, default=None,
@@ -97,6 +104,9 @@ def train(argv) -> dict:
     from learninghumanoidwalking_tpu_torch.rl.logger import TrainingLogger
     from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
 
+    if args.env.startswith("mjcf:"):  # absolute paths: eval --path and --continued rebuild the env from anywhere
+        args.env = "mjcf:" + str(Path(args.env[len("mjcf:"):]).resolve())
+        args.json = None if args.json is None else str(Path(args.json).resolve())
     env = make_env(args.env, args.json, device=device)
     cfg = PPOConfig(
         n_itr=args.n_itr, lr=args.lr, eps=args.eps, gamma=args.gamma, lam=args.lam, std_dev=args.std_dev,
@@ -107,7 +117,8 @@ def train(argv) -> dict:
         eval_freq=args.eval_freq, seed=args.seed, recurrent=args.recurrent,
     )
 
-    run_dir = Path(args.logdir) / f"{args.env}-{datetime.datetime.now():%Y%m%d-%H%M%S-%f}"
+    run_name = "mjcf-" + Path(args.env[len("mjcf:"):]).stem if args.env.startswith("mjcf:") else args.env
+    run_dir = Path(args.logdir) / f"{run_name}-{datetime.datetime.now():%Y%m%d-%H%M%S-%f}"
     run_dir.mkdir(parents=True, exist_ok=True)
     print(f"logging to {run_dir}", flush=True)
 

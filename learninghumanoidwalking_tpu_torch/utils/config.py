@@ -35,6 +35,16 @@ class Configuration:
             raise AttributeError(name)
         return self._data.get(name, None)
 
+    def merged(self, other: "Configuration") -> "Configuration":
+        """Deep merge: ``other``'s values win; nested Configurations merge
+        key by key (learninghumanoidwalking_tpu/utils/config.py:54)."""
+        out = Configuration()
+        out._data = dict(self._data)
+        for key, value in other._data.items():
+            mine = out._data.get(key)
+            out._data[key] = mine.merged(value) if isinstance(mine, Configuration) and isinstance(value, Configuration) else value
+        return out
+
     def to_dict(self) -> dict:
         """The plain dict (nested Configurations unwrapped)."""
         unwrap = lambda v: v.to_dict() if isinstance(v, Configuration) else [unwrap(x) for x in v] if isinstance(v, list) else v

@@ -16,7 +16,10 @@ Tolerances:
   motor steps): bench.py's two-part cross-compiler gate, as
   test_torch_batched.py holds the motor-free cases, and the returned
   MotorState: histories 1e-4 relative to their largest magnitude (they
-  hold velocities and torques of the two trajectories), count exactly.
+  hold velocities and torques of the two trajectories), count exactly;
+* the same on terrain (K5's and K6's plain version: jvrc_step's stepping
+  stones, a 16x16 heightfield with jvrc_walk_rough's compliant contacts):
+  two control steps held to part 1 of the gate and the MotorState.
 """
 
 import numpy as np
@@ -139,6 +142,70 @@ def test_pd_substeps_with_motor_matches_jax(params):
     assert np.max(np.abs(fn_t - fn_j) / (np.abs(fn_j) + 1.0)) < 0.02
     assert abs(np.mean(fn_t) - weight) / weight < 0.03
     np.testing.assert_array_equal(m_t.count.numpy(), np.asarray(m_j.count))
+
+
+def _terrain(kind, b, rng):
+    """(spec keywords, JAX Terrain, port Terrain, root lift): 20 stepping
+    stones level under the feet, every third from x = 1.05 m raised 3 cm and
+    all slightly yawed; or a 16x16 heightfield of U(0, 0.035) heights on
+    0.25 m cells with jvrc_walk_rough's contacts (timeconst 0.04)."""
+    if kind == "boxes":
+        nt = 20
+        pos = np.zeros((b, nt, 3), np.float32)
+        pos[..., 0] = 0.3 * np.arange(nt) - 0.3
+        pos[..., 2] = np.where((np.arange(nt) % 3 == 2) & (np.arange(nt) > 4), 0.03, 0.0) - 0.1
+        arrays = dict(pos=pos, size=np.tile(np.array([0.15, 1.0, 0.1], np.float32), (b, nt, 1)),
+                      yaw=(0.1 * rng.standard_normal((b, nt))).astype(np.float32), floor_z=np.zeros(b, np.float32))
+        spec_kw, lift = dict(nterrain=nt), 0.0
+    else:
+        arrays = dict(pos=np.zeros((b, 0, 3), np.float32), size=np.zeros((b, 0, 3), np.float32), yaw=np.zeros((b, 0), np.float32),
+                      floor_z=np.zeros(b, np.float32), hfield=rng.uniform(0.0, 0.035, (b, 16, 16)).astype(np.float32),
+                      hfield_x0y0=np.tile(np.array([-1.2, -1.875], np.float32), (b, 1)), hfield_cell=np.full((b, 2), 0.25, np.float32))
+        spec_kw, lift = dict(timeconst=0.04), 0.02
+    return (spec_kw, je.Terrain(**{k: jnp.asarray(v) for k, v in arrays.items()}),
+            te.Terrain(**{k: torch.tensor(v) for k, v in arrays.items()}), lift)
+
+
+@pytest.mark.parametrize("kind", ["boxes", "hfield"])
+def test_pd_substeps_on_terrain_with_motor_matches_jax(params, kind):
+    """K5's (boxes) and K6's (heightfield) plain version: two control steps
+    with the motor hook on terrain from a state past warmup (counts
+    25..33), against the JAX batched engine given the same terrain and the
+    same nets (carried across as numpy)."""
+    jp, tp = params
+    b = 4
+    rng = np.random.default_rng(11)
+    spec_kw, jter, tter, lift = _terrain(kind, b, rng)
+    jm, tm = jax_lower(jax_jvrc.jvrc_spec(**spec_kw)), lower(jvrc.jvrc_spec(**spec_kw), device="cpu")
+    pose = np.deg2rad(np.asarray(jvrc.HALF_SITTING_POSE_DEG, np.float32))
+    qpos = np.tile(np.concatenate([[0, 0, jvrc.NOMINAL_HEIGHT + lift, 1, 0, 0, 0], pose]).astype(np.float32)[None], (b, 1))
+    qpos[:, :2] += 0.01 * rng.standard_normal((b, 2)).astype(np.float32)
+    qvel = (0.05 * rng.standard_normal((b, 18))).astype(np.float32)
+    target = (pose[None] + 0.05 * rng.standard_normal((b, NU))).astype(np.float32)
+    qd_h = (0.05 * rng.standard_normal((b, H, NU))).astype(np.float32)
+    ct_h = (5 * rng.standard_normal((b, H, NU))).astype(np.float32)
+    counts = np.array([25, 26, 27, 33], np.int32)
+    jparams = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (b,) + x.shape), jax_default_dyn_params(jm, KP, KD))
+    tparams = default_dyn_params(tm, KP, KD, b)
+    run_j = jax.jit(lambda s, m: jb.pd_substeps_batched(jm, jparams, s, jnp.asarray(target), 25, 1e-3, jter, motor=(jp, m),
+                                                        reuse_interval=1))
+    s_j = jax.vmap(lambda q, v: je.make_state(jm, q, v))(jnp.asarray(qpos), jnp.asarray(qvel))
+    s_t = te.make_state(tm, torch.tensor(qpos), torch.tensor(qvel))
+    m_j = jmotor.MotorState(qdot_hist=jnp.asarray(qd_h), ctau_hist=jnp.asarray(ct_h), count=jnp.asarray(counts))
+    m_t = motor.MotorState(qdot_hist=torch.tensor(qd_h), ctau_hist=torch.tensor(ct_h), count=torch.tensor(counts))
+    for _ in range(2):
+        s_j, m_j = run_j(s_j, m_j)
+        s_t, m_t = tb.pd_substeps_batched(tm, tparams, s_t, torch.tensor(target), 25, 1e-3, tter, motor=(tp, m_t), reuse_interval=1)
+        grf_j = np.sum(np.linalg.norm(np.asarray(s_j.contact.force), axis=-1) * np.asarray(s_j.contact.mask), axis=1)
+        grf_t = np.sum(np.linalg.norm(s_t.contact.force.numpy(), axis=-1) * s_t.contact.mask.numpy(), axis=1)
+        assert np.all(np.isfinite(s_t.qpos.numpy()))
+        assert np.max(np.abs(np.asarray(s_j.qpos) - s_t.qpos.numpy())) < 5e-3
+        assert np.quantile(np.abs(grf_t - grf_j) / (np.abs(grf_j) + 50.0), 0.95) < 0.04
+        for mine, theirs in ((m_t.qdot_hist, m_j.qdot_hist), (m_t.ctau_hist, m_j.ctau_hist)):
+            assert np.max(np.abs(mine.numpy() - np.asarray(theirs))) <= 1e-4 * np.max(np.abs(np.asarray(theirs)))
+        np.testing.assert_array_equal(m_t.count.numpy(), np.asarray(m_j.count))
+    np.testing.assert_array_equal(m_t.count.numpy(), counts + 50)
+    assert float(s_t.contact.mask.sum()) > 0  # the feet stand on the terrain
 
 
 def test_load_motor_params_round_trips_npz(tmp_path, params):

@@ -17,15 +17,21 @@ The motor term of the count (K4) is held to the widths of the default
 motor nets (50 -> 32 -> 32 -> 1 per joint, 12 joints): bench.py traces no
 motor kernel, so there is no traced count to compare it with.
 
-Every build (K1 flat, K2/K3 terrain, K4 motor) launches a group of lanes
+Every build (K1 flat, K2/K3 terrain, K4 motor, K5/K6 terrain + motor)
+launches a group of lanes
 per env with its working set in shared memory: its launch plan must give
 every env exactly one group and stay within a block's 232,448 B of shared
-memory (the motor build's region holding the motor histories), and its
+memory (the motor builds' regions holding the motor histories), and its
 tree tables must order every body after its parent. Every kernel's library
 builds from a source that exists. The layouts these tests plan with are
 held to what the source's builds report (run through the C++
 preprocessor), and the rejected designs of K4's nets that ops/net_sweep.py
-times still apply to the source and change only the motor build.
+times still apply to the source and change only the motor builds.
+
+The terrain + motor build (K5: jvrc_step's boxes, K6: jvrc_walk_rough's
+heightfield, each with the motor hook) is counted as the terrain build's
+work plus the motor term, and checked like the others; it refuses a model
+whose legs have fewer than 6 dofs (its float32 basis Gram).
 """
 
 import dataclasses
@@ -124,7 +130,7 @@ def test_motor_blocks_layout():
         assert torch.equal(blk["weights"], torch.cat(order))
 
 
-# the caps and launch layout the three builds report (csrc/control_step_lanes.cu:
+# the caps and launch layout the builds report (csrc/control_step_lanes.cu:
 # LHW_TERRAIN 0 / 1, LHW_MOTOR 1; lanes per env, most threads a block, table
 # sizes, the floats of an env's fixed shared region, the motor histories'
 # offsets in it)
@@ -136,7 +142,9 @@ MOTOR = dict(FLAT, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3, SM_FIXED=274
 
 def test_check_model_takes_terrain_and_refuses_motor_models():
     """The K1 and terrain builds take no motor model; the motor build (K4)
-    takes one on the flat floor within its caps, and none on terrain."""
+    takes one on the flat floor within its caps, and none on terrain; the
+    terrain + motor build (K5, K6) takes one on terrain boxes or a
+    heightfield within the same caps, and refuses H1's 5-dof legs."""
     flat, boxes = lower(jvrc.jvrc_spec(), device="cpu"), lower(jvrc.jvrc_spec(nterrain=20), device="cpu")
     sk.check_model(flat, FLAT)
     sk.check_model(boxes, TERRAIN)  # K2
@@ -164,6 +172,17 @@ def test_check_model_takes_terrain_and_refuses_motor_models():
         sk.check_model(boxes, MOTOR, motor=motor)
     with pytest.raises(ValueError, match="terrain \\+ motor build"):
         sk.check_model(flat, TERRAIN, hfield_shape=(16, 16), motor=motor)
+    # K5 and K6: the terrain + motor build, with the same net checks
+    sk.check_model(boxes, TERRAIN_MOTOR, motor=motor)
+    sk.check_model(flat, TERRAIN_MOTOR, hfield_shape=(16, 16), motor=motor)
+    assert [sk.variant(boxes, False, motor=True), sk.variant(flat, True, motor=True)] == ["K5", "K6"]
+    with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
+        sk.check_model(boxes, TERRAIN_MOTOR, motor=_motor(hidden=(128,)))
+    with pytest.raises(ValueError, match="12 joints"):
+        sk.check_model(flat, TERRAIN_MOTOR, hfield_shape=(16, 16), motor=_motor(nu=10))
+    with pytest.raises(ValueError, match="6-dof legs"):
+        sk.check_model(lower(h1.h1_spec(), device="cpu"), TERRAIN_MOTOR, hfield_shape=(16, 16))
+    assert sk.leg_dofs(flat) == [6, 6] and sk.leg_dofs(lower(h1.h1_spec(), device="cpu")) == [5, 5]
     with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
         sk.check_model(flat, MOTOR, motor=_motor(hidden=(32, 32, 32)))
     with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
@@ -174,11 +193,32 @@ def test_check_model_takes_terrain_and_refuses_motor_models():
     assert [sk.kernel_reuse(None, 5), sk.kernel_reuse(None, 5, motor=True)] == [5, 1]
 
 
+def test_terrain_motor_work_count(terrain_models):
+    """K5's and K6's work: the terrain build's count (boxes, heightfield)
+    plus the motor term of K4; their bytes the terrain inputs plus the two
+    histories, the count and the weights; bound by operations at B=32768."""
+    params = _motor()
+    for terrain in ("boxes", "hfield"):
+        model, hfield = terrain_models[terrain]
+        hf = hfield is not None
+        assert sk.flops_per_env_substep(model, 1, hfield=hf, motor=params) == (
+            sk.flops_per_env_substep(model, 1, hfield=hf) + sk.motor_flops_per_net(params))
+        flat = lower(jvrc.jvrc_spec(), device="cpu")
+        extra = sk.bytes_per_launch(model, 32768, hfield, motor=params) - sk.bytes_per_launch(model, 32768, hfield)
+        assert extra == sk.bytes_per_launch(flat, 32768, motor=params) - sk.bytes_per_launch(flat, 32768)
+        flops = sk.flops_per_env_substep(model, 1, hfield=hf, motor=params) * 25 * 32768
+        assert flops / 67e12 > 10 * sk.bytes_per_launch(model, 32768, hfield, motor=params) / 3.35e12
+
+
 # the terrain build's launch layout (csrc/control_step_terrain.cu: lanes per
 # env, most threads a block, the table sizes, the floats of an env's fixed
 # shared region)
 SM_FIXED = 2188
 TERRAIN_PLAN = dict(TERRAIN, LHW_G=16, LHW_TPB=192, N_FTAB=748, N_ITAB=620, SM_FIXED=SM_FIXED)
+# the terrain + motor build: the terrain build's region, then the two history
+# rings (16 joints x 25 slots each), then the terrain
+TERRAIN_MOTOR = dict(TERRAIN_PLAN, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3, SM_FIXED=SM_FIXED + 800, E_QDH=SM_FIXED,
+                     E_CTH=SM_FIXED + 400)
 
 
 @pytest.fixture(scope="module")
@@ -210,6 +250,30 @@ def test_terrain_launch_plan_covers_every_env_once(terrain_models, terrain, batc
         assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
         if epb > 1:
             assert sk.BLOCKS_PER_SM * (plan["static_bytes"] + plan["smem_bytes"] + 1024) <= 233472
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4096, 32768])
+@pytest.mark.parametrize("terrain", ["boxes", "hfield"])
+def test_terrain_motor_launch_plan_covers_every_env_once(terrain_models, terrain, batch):
+    """K5 and K6 launch like K2 and K3 with the two history rings in each
+    env's region before its terrain: every env exactly once, no block
+    without an env, within the block's threads and shared memory, two
+    blocks an SM: 8 envs a block (K2/K3 12) at the training batch."""
+    model, hfield = terrain_models[terrain]
+    floats = sk.terrain_floats(model, hfield)
+    lay = TERRAIN_MOTOR
+    assert lay["E_QDH"] >= SM_FIXED and lay["E_CTH"] == lay["E_QDH"] + 25 * 16 and lay["E_CTH"] + 25 * 16 <= lay["SM_FIXED"]
+    plan = sk.launch_plan(model, batch, lay, hfield)
+    epb = plan["envs_per_block"]
+    envs = [blk * epb + grp for blk in range(plan["grid"]) for grp in range(epb)]
+    assert [e for e in envs if e < batch] == list(range(batch))
+    assert (plan["grid"] - 1) * epb < batch
+    assert plan["threads"] == epb * 16 <= 192 and epb == min(8, batch)
+    assert plan["env_floats"] % 2 == 0 and plan["env_floats"] % 32 != 0
+    assert lay["SM_FIXED"] + floats <= plan["env_floats"] <= lay["SM_FIXED"] + floats + 3
+    assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
+    if epb > 1:
+        assert sk.BLOCKS_PER_SM * (plan["static_bytes"] + plan["smem_bytes"] + 1024) <= 233472
 
 
 def test_terrain_launch_plan_refuses_oversized_terrain(terrain_models):
@@ -278,11 +342,13 @@ def test_every_kernel_library_source_exists():
     """Every kernel routes to a library, and every library builds from
     sources in ops/csrc/ (all from the one lane source)."""
     csrc = Path(sk.__file__).resolve().parent / "csrc"
-    assert set(sk.LIBRARY_OF) == {"K1", "K2", "K3", "K4"} and set(sk.LIBRARY_OF.values()) <= set(sk.LIBRARIES)
+    assert set(sk.LIBRARY_OF) == {"K1", "K2", "K3", "K4", "K5", "K6"} and set(sk.LIBRARY_OF.values()) == set(sk.LIBRARIES)
+    assert set(sk.counters) == set(sk.LIBRARY_OF)
     for kernel, library in sk.LIBRARY_OF.items():
         _, sources, defines = sk.LIBRARIES[library]
         assert sources and all((csrc / src).is_file() for src in sources), (kernel, sources)
-        assert ("-DLHW_TERRAIN=0" in defines) == (library != "terrain") and ("-DLHW_MOTOR=1" in defines) == (library == "motor")
+        assert ("-DLHW_TERRAIN=0" in defines) == (library in ("flat", "motor"))
+        assert ("-DLHW_MOTOR=1" in defines) == (library in ("motor", "terrain_motor"))
     assert {src for _, sources, _ in sk.LIBRARIES.values() for src in sources} == {"control_step_lanes.cu"}
 
 
@@ -300,9 +366,10 @@ def _preprocess(source: Path, defines: tuple, tmp_path: Path) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
 
 
-@pytest.mark.parametrize("build", ["flat", "terrain", "motor"])
+@pytest.mark.parametrize("build", ["flat", "terrain", "motor", "terrain_motor"])
 def test_layout_dicts_match_the_source(build, tmp_path):
-    """The hand-written layouts above (FLAT, TERRAIN_PLAN, MOTOR) are what
+    """The hand-written layouts above (FLAT, TERRAIN_PLAN, MOTOR,
+    TERRAIN_MOTOR) are what
     each build of csrc/control_step_lanes.cu reports through
     lhw_control_step_layout: the source is run through the C++ preprocessor
     with its library's defines (cuda_runtime.h an empty stub) and the
@@ -314,7 +381,7 @@ def test_layout_dicts_match_the_source(build, tmp_path):
     exprs = re.search(r"vals\[\] = \{(.*?)\};", text).group(1).split(",")[:-1]
     assert len(names) == len(exprs) and all(re.fullmatch(r"[\d\s+*/()&~-]+", e) for e in exprs)
     layout = dict(zip(names, (eval(e.replace("/", "//")) for e in exprs)))  # non-negative C integer arithmetic
-    expected = {"flat": FLAT, "terrain": TERRAIN_PLAN, "motor": MOTOR}[build]
+    expected = {"flat": FLAT, "terrain": TERRAIN_PLAN, "motor": MOTOR, "terrain_motor": TERRAIN_MOTOR}[build]
     assert {k: layout.get(k) for k in expected} == expected
 
 
@@ -322,8 +389,8 @@ def test_layout_dicts_match_the_source(build, tmp_path):
 def test_net_variants_apply_to_the_lane_source(name, tmp_path):
     """ops/net_sweep.py's rejected designs of K4's nets still apply to the
     lane source (each hunk of their diffs found exactly once) and change the
-    motor build only: the flat and terrain builds preprocess to the same
-    text as the kept source's."""
+    motor builds only (K4; K5 and K6): the flat and terrain builds
+    preprocess to the same text as the kept source's."""
     variants = net_sweep.variant_sources(CSRC)
     assert set(variants) == {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"}
     kept_path = CSRC / "control_step_lanes.cu"
@@ -333,10 +400,10 @@ def test_net_variants_apply_to_the_lane_source(name, tmp_path):
     assert marker in text
     path = tmp_path / "variant.cu"
     path.write_text(text)
-    for build in ("flat", "terrain", "motor"):
+    for build in sk.LIBRARIES:
         defines = sk.LIBRARIES[build][2]
         same = _preprocess(path, defines, tmp_path) == _preprocess(kept_path, defines, tmp_path)
-        assert same == (build != "motor"), build
+        assert same == (build not in ("motor", "terrain_motor")), build
     # block_staged's two buffers of one joint's weights: 2 x 2722 floats at the default widths
     assert net_sweep.stage_floats(sk.motor_dims(_motor())) == 2 * (1 + 50 * 32 + 32 + 32 * 32 + 32 + 32 + 1)
 

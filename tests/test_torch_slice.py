@@ -89,7 +89,7 @@ def test_two_motor_training_iterations_on_cpu():
         c.reset()
     ts, history = trainer.train(2, verbose=False, evaluate=False)
     assert all(c.launches == 0 for c in substep_kernel.counters.values())
-    assert set(substep_kernel.counters) == {"K1", "K2", "K3", "K4"}
+    assert set(substep_kernel.counters) == {"K1", "K2", "K3", "K4", "K5", "K6"}
     assert len(history) == 2 and ts.iteration == 2
     for m in history:
         for k in ("actor_loss", "critic_loss", "mirror_loss", "approx_kl", "mean_reward"):
