@@ -14,10 +14,11 @@
 //   motor (LHW_TERRAIN 0, LHW_MOTOR 1): K4, the flat floor at R=1 plus the
 //     learned motor hook of substep_kernel.py:1036-1102 (see "Motor" below);
 //   terrain + motor (LHW_TERRAIN 1, LHW_MOTOR 1): K5 (terrain boxes) and K6
-//     (heightfield) with the motor hook, the terrain build's contacts and
-//     K4's nets, the histories in the env's fixed region before its terrain
-//     (make_control_step with terrain and motor=, substep_kernel.py:1331,
-//     :1360-1375). It
+//     (heightfield) with the motor hook: the terrain build's region and
+//     contacts, the histories in device memory and the nets run once a
+//     substep for the whole block (see "Motor, terrain + motor build"
+//     below; make_control_step with terrain and motor=,
+//     substep_kernel.py:1331, :1360-1375). It
 // computes what that kernel and its plain twin
 // physics/batched.py::pd_substeps_batched compute; the plain PyTorch
 // version in this package (physics/batched.py, the dense contact solve, and
@@ -78,8 +79,8 @@
 //    loop at GRP = 1.
 //  - THE WORKING SET IN SHARED MEMORY, not thread-local memory: each env
 //    owns a fixed region (offsets E_* from the caps below; 8.75 KB on
-//    terrain, 7.6 KB flat, 10.7 KB with the motor histories on the flat
-//    floor, 11.95 KB with them on terrain) plus its
+//    terrain, with or without the motor hook, 7.6 KB flat, 10.7 KB with the
+//    motor histories on the flat floor) plus its
 //    terrain, in dynamic shared memory (above 48 KB by opt-in). It holds the
 //    kinematics, M's factor, the basis solves Y, G and LG, Chat, K and its
 //    factor; the dynamics, refresh, contact phases and motor nets reuse one
@@ -96,7 +97,8 @@
 // bytes, the grid) is the wrapper's (ops/substep_kernel.py::launch_plan).
 // Tensor cores are not used: the physics must stay f32 (TF32 keeps about 3
 // decimal digits against the 1e-4 relative rule the kernel is held to), and
-// the per-env matrices are 12x12 and 12x18, far below a useful MMA tile.
+// the per-env matrices are 12x12 and 12x18, far below a useful MMA tile;
+// for the terrain + motor build's nets see below.
 //
 // Motor (K4). Every substep's PD torque passes through the learned motor
 // hook of robots/motor.py before ctrl = tau / gear: per joint a rolling
@@ -118,6 +120,36 @@
 // buffers) made the nets faster but cost as much in block-wide barriers
 // (PERF.md). FMAs in float32 and tanhf, not a fast tanh; no tensor cores
 // (TF32 keeps about 3 digits against the rule's 1e-4).
+//
+// Motor, terrain + motor build (K5, K6). The same hook and nets. Its step
+// launch is bound by operations (1.380 ms for K5, 1.215 for K6 at B=32768,
+// the nets ~0.6 ms of that); on the card it is held back by occupancy and
+// by the nets' load latency, and the design answers each:
+//  - (A) THE HISTORIES IN DEVICE MEMORY: the rings (3.2 KB an env) in the
+//    env's region would leave room for 8 envs a block; without them the
+//    region is the terrain build's and the block holds K2/K3's 11 (22 an
+//    SM). Each env's rings live in a
+//    scratch the wrapper allocates (2 nu MAX_H floats an env, env-major, so
+//    an env's rings are one contiguous run; the resident envs' ~9 MB stay
+//    in L2). The input histories go in once (ring head 0), each substep
+//    writes one slot a joint, the histories go out oldest first.
+//  - (B) THE NETS ONCE A BLOCK: where an env's nets run, its group stages
+//    its joints' windows (oldest first, the net's input order) from the
+//    rings into its scratch union with cp.async; the owning lanes write the
+//    newest slot. Then the block meets a barrier, its warps run the nets of
+//    all its envs (block_motor_nets: a warp a joint, a lane a unit, each
+//    weight loaded once a block and applied to up to NET_ENVS envs from
+//    registers), and a second barrier hands each owning lane its torque:
+//    two block barriers a substep. Groups without an env (the ragged edge,
+//    and the rest of the block's last warp: blocks are whole warps) meet
+//    both barriers and no more. A unit's bias and inputs sum in the
+//    reference's order, so the hidden layers are group_motor_net's bit for
+//    bit; the output layer's lanes' shares sum in lane order.
+//  - (C) NO TENSOR CORES: each hidden layer as a warp's 3xTF32 mma.sync
+//    product over the block's envs (about float32's accuracy) was correct
+//    and slower on the card (ops/csrc/net_variants/tensor_cores.diff,
+//    ops/net_sweep.py, PERF.md): the nets are bound by instruction
+//    throughput and latency around the products, not by their FMAs.
 //
 // A thread gathers what a TPU lane cannot, so each bilinear heightfield
 // sample reads only the 4 nodes around it (the Pallas kernel contracts tent
@@ -305,13 +337,18 @@
 static_assert(W_NET + MAX_HID + 2 * MAX_H <= W_SIZE, "motor scratch past the union");
 #endif
 #if LHW_TERRAIN
-#if LHW_MOTOR
-// the motor histories as rings, then the terrain (past SM_FIXED)
-#define E_QDH (E_WORK + W_SIZE)        // [joint][slot] joint velocities
-#define E_CTH (E_QDH + MAX_U * MAX_H)  // [joint][slot] commanded torques
-#define SM_FIXED (E_CTH + MAX_U * MAX_H)
-#else
 #define SM_FIXED (E_WORK + W_SIZE)
+#if LHW_MOTOR
+// the terrain + motor build keeps the motor histories in device memory (the
+// wrapper's scratch); where an env's nets run, a substep stages its joints'
+// windows of them into the union, joint n's at n * net_window_ld (oldest
+// first, the net's input order), and each layer of joint n's net writes its
+// outputs over that window; the torques and the env's flag sit at the
+// union's end
+#define W_MTAU (W_SIZE - MAX_U - 2)  // the nets' torques, per joint
+#define W_MFLAG (W_SIZE - 1)         // 1 where the env's nets run this substep
+#define NET_ENVS 12                  // most envs a block: a lane keeps an accumulator per env
+static_assert(W_MTAU % 2 == 0 && W_MFLAG >= W_MTAU + MAX_U, "motor torques past the union");
 #endif
 // the terrain follows SM_FIXED: 8 nt box floats, H W + 4 heightfield floats, floor_z
 #else
@@ -741,6 +778,192 @@ __device__ float group_motor_net(const float* __restrict__ mw, int nu, int nl, c
 }
 #endif
 
+#if LHW_TERRAIN && LHW_MOTOR
+// A block barrier that the block's groups may reach from different call
+// sites (the groups with an env in the substep loop, those without one in
+// their own loop): bar.sync without .aligned, which __syncthreads assumes.
+__device__ __forceinline__ void block_sync() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+// Layer widths of the motor nets: d_0 = 2 MAX_H, the hidden widths, d_nl = 1.
+__device__ __forceinline__ void motor_layer_dims(int* dims, int nl, int hid0, int hid1) {
+  dims[0] = 2 * MAX_H;
+  for (int l = 1; l < nl; ++l) dims[l] = (l == 1) ? hid0 : hid1;
+  dims[nl] = 1;
+}
+
+// Floats of one joint's window in the union: its 2 MAX_H inputs or a wider
+// hidden layer written over them; even, so that inputs load in pairs.
+__device__ __forceinline__ int net_window_ld(int nl, const int* dims) {
+  int w = 2 * MAX_H;
+  for (int l = 1; l < nl; ++l) w = (dims[l] > w) ? dims[l] : w;
+  return (w + 1) & ~1;
+}
+
+#define NET_PAIRS 4  // input pairs whose weights a lane holds at once (and as many in flight)
+
+// The kernel's dynamic shared memory (the envs' regions, as env_smem_raw in
+// the kernel: every extern __shared__ array starts there), seen by the
+// motor nets, which index it in floats: its loads take 32-bit shared
+// addresses, where a pointer passed into the (not inlined) nets would be a
+// generic one.
+extern __shared__ double env_smem_raw[];
+
+// Joint n's net for the block's envs e < nenv, by one warp: lane j holds
+// unit j (and j + 32 where UPL is 2) of a layer for every env. Each weight
+// is loaded once (a warp's loads of one input row are one 128 B line,
+// through the read-only cache), 2 NET_PAIRS inputs at a time, the next
+// ones' while these are applied, and applied to every env from a register:
+// for each pair of inputs the lane reads every env's two window floats (one
+// 8-byte load each, the same address in every lane, at a fixed offset from
+// the env's window) into NET_ENVS independent FMA chains, branch-free (a
+// slot past the block's envs repeats its last env). A unit sums its bias,
+// then its inputs in turn (the reference's order). Once every lane has
+// read them (__syncwarp), a hidden layer's outputs go over the window, but
+// the last one's, which the lanes fold into the output (each its unit times
+// its output weight; with no hidden layer, its share of the inputs) and
+// write over the window in turn; lane e sums env e's output bias, then the
+// 32 lanes' shares in lane order, adds skip * its newest commanded torque
+// (read before the window is overwritten) and writes the torque to the
+// env's W_MTAU + n where its nets run (act). The envs whose nets do not run
+// are computed too, on whatever their union holds, and not written. tanhf,
+// not a fast tanh.
+template <int UPL>
+__device__ __forceinline__ void warp_joint_net(const float* __restrict__ mw, int nu, int nl, const int* dims, int n,
+                                               int env_stride, int nenv, unsigned act) {
+  float* const sm = (float*)env_smem_raw;
+  const int lane = threadIdx.x & 31, last = nl - 1, dlast = dims[last];
+  const int base = E_WORK + n * net_window_ld(nl, dims);  // joint n's window in an env's region
+  int off_out = 0;
+#pragma unroll 1
+  for (int l = 0; l < last; ++l) off_out += nu * dims[l] * dims[l + 1] + nu * dims[l + 1];
+  const float* w_out = mw + off_out + n * dlast;
+  const float b_out = __ldg(mw + off_out + nu * dlast + n), skip = __ldg(mw + off_out + nu * dlast + nu + n);
+  const bool mine = lane < nenv && ((act >> lane) & 1u);  // lane e writes env e's torque
+  const float ct_new = mine ? sm[lane * env_stride + base + 2 * MAX_H - 1] : 0.f;
+  int xw[NET_ENVS];  // each slot's window of the joint (past the block's envs, its last env's)
+#pragma unroll
+  for (int e = 0; e < NET_ENVS; ++e) xw[e] = ((e < nenv) ? e : nenv - 1) * env_stride + base;
+  float part[NET_ENVS];
+#pragma unroll
+  for (int e = 0; e < NET_ENVS; ++e) part[e] = 0.f;
+  if (last == 0) {  // no hidden layer: the lane's share of the inputs
+#pragma unroll 1
+    for (int i = lane; i < dlast; i += 32) {
+      const float wi = __ldg(w_out + i);
+#pragma unroll
+      for (int e = 0; e < NET_ENVS; ++e) part[e] += sm[xw[e] + i] * wi;
+    }
+  }
+  int off = 0;
+#pragma unroll 1
+  for (int l = 0; l < last; ++l) {
+    const int din = dims[l], dout = dims[l + 1];
+    const float* w = mw + off + n * din * dout;
+    const float* bias = mw + off + nu * din * dout + n * dout;
+    float h[UPL][NET_ENVS];
+#pragma unroll
+    for (int c = 0; c < UPL; ++c) {
+      const int o = c * 32 + lane;
+      const bool on = o < dout;
+      const float* wo_ = w + (on ? o : 0);
+      float acc[NET_ENVS];
+      const float b = on ? __ldg(bias + o) : 0.f;
+#pragma unroll
+      for (int e = 0; e < NET_ENVS; ++e) acc[e] = b;
+      const int full = (din / (2 * NET_PAIRS)) * (2 * NET_PAIRS);  // inputs in whole chunks
+      float wc[2 * NET_PAIRS], wn[2 * NET_PAIRS];
+#pragma unroll
+      for (int j = 0; j < 2 * NET_PAIRS; ++j) wc[j] = (on && j < full) ? __ldg(wo_ + j * dout) : 0.f;
+#pragma unroll 1
+      for (int i0 = 0; i0 < full; i0 += 2 * NET_PAIRS) {
+#pragma unroll
+        for (int j = 0; j < 2 * NET_PAIRS; ++j)
+          wn[j] = (on && i0 + 2 * NET_PAIRS + j < full) ? __ldg(wo_ + (i0 + 2 * NET_PAIRS + j) * dout) : 0.f;
+#pragma unroll
+        for (int j = 0; j < 2 * NET_PAIRS; j += 2)
+#pragma unroll
+          for (int e = 0; e < NET_ENVS; ++e) {
+            const float2 v = *(const float2*)(sm + xw[e] + i0 + j);
+            acc[e] += v.x * wc[j];
+            acc[e] += v.y * wc[j + 1];
+          }
+#pragma unroll
+        for (int j = 0; j < 2 * NET_PAIRS; ++j) wc[j] = wn[j];
+      }
+#pragma unroll 1
+      for (int i = full; i < din; ++i) {  // the inputs past the whole chunks, one at a time
+        const float wi = on ? __ldg(wo_ + i * dout) : 0.f;
+#pragma unroll
+        for (int e = 0; e < NET_ENVS; ++e) acc[e] += sm[xw[e] + i] * wi;
+      }
+      const float wo = (l == last - 1 && on) ? __ldg(w_out + o) : 0.f;
+#pragma unroll
+      for (int e = 0; e < NET_ENVS; ++e) {
+        h[c][e] = on ? tanhf(acc[e]) : 0.f;
+        part[e] += h[c][e] * wo;
+      }
+    }
+    if (l < last - 1) {
+      __syncwarp();  // every lane has read the layer's inputs
+#pragma unroll
+      for (int c = 0; c < UPL; ++c)
+#pragma unroll
+        for (int e = 0; e < NET_ENVS; ++e)
+          if (c * 32 + lane < dout && e < nenv) sm[xw[e] + c * 32 + lane] = h[c][e];
+      __syncwarp();  // the layer's outputs visible to the warp
+    }
+    off += nu * din * dout + nu * dout;
+  }
+  __syncwarp();  // every lane has read the last layer's inputs
+#pragma unroll
+  for (int e = 0; e < NET_ENVS; ++e)
+    if (e < nenv) sm[xw[e] + lane] = part[e];
+  __syncwarp();  // the lanes' shares visible to the warp
+  if (mine) {
+    const int x = lane * env_stride + base;
+    float out = b_out;
+#pragma unroll
+    for (int o = 0; o < 32; o += 2) {
+      const float2 v = *(const float2*)(sm + x + o);
+      out += v.x;
+      out += v.y;
+    }
+    sm[lane * env_stride + E_WORK + W_MTAU + n] = skip * ct_new + out;
+  }
+  __syncwarp();  // the window read before the warp's next joint
+}
+
+// The motor nets of the block's envs, once a substep, between two block
+// barriers: every thread of the block calls it (the block is whole warps),
+// and warp w runs joints w, w + nwarps, ... (warp_joint_net) for all the
+// block's envs once any env's flag (W_MFLAG) is set. Not inlined: the groups
+// with an env and those without reach it from two call sites, and the
+// block's last warp may hold both (inlined twice, its halves would run two
+// copies one after the other). nenv: the block's envs.
+__device__ __noinline__ void block_motor_nets(const float* __restrict__ mw, int nu, int nl, const int* dims, int env_stride,
+                                              int nenv) {
+  const float* const sm = (const float*)env_smem_raw;
+  block_sync();  // every env's windows and flag staged
+  unsigned act = 0;  // the envs whose nets run, the same in every lane
+  for (int e = 0; e < nenv; ++e)
+    if (sm[e * env_stride + E_WORK + W_MFLAG] != 0.f) act |= 1u << e;
+  int wide = 0;
+  for (int l = 1; l < nl; ++l) wide |= dims[l] > 32;
+#pragma unroll 1
+  for (int n = (int)(threadIdx.x >> 5); act != 0u && n < nu; n += (int)(blockDim.x >> 5)) {
+    if (wide) warp_joint_net<(MAX_HID + 31) / 32>(mw, nu, nl, dims, n, env_stride, nenv, act);
+    else warp_joint_net<1>(mw, nu, nl, dims, n, env_stride, nenv, act);
+  }
+  block_sync();  // the torques visible to their owning lanes
+}
+#endif
+
 extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     int batch, int frame_skip, int settle, float dt, int epb, int env_stride,
 #if !LHW_TERRAIN
@@ -750,6 +973,9 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     const float* __restrict__ motor_w, int motor_layers, int motor_hid0, int motor_hid1,
     const float* __restrict__ qd_hist_in, const float* __restrict__ ct_hist_in, const int* __restrict__ count_in,
     float* __restrict__ qd_hist_out, float* __restrict__ ct_hist_out, int* __restrict__ count_out,
+#if LHW_TERRAIN
+    float* __restrict__ rings,
+#endif
 #endif
     const float* __restrict__ ftab, const int* __restrict__ itab,
     const float* __restrict__ qpos_in, const float* __restrict__ qvel_in,
@@ -805,6 +1031,21 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     copy_async_wait();
   }
   __syncthreads();
+#if LHW_MOTOR
+  // a group without an env (past the batch, or the rest of the block's last
+  // warp: the launch rounds the block up to whole warps) meets the motor
+  // nets' block barriers, two a substep, and leaves
+  const int m_nenv = (B - b0 < epb) ? B - b0 : epb;
+  if ((int)threadIdx.x / GRP >= m_nenv) {
+    if (!settle) {
+      int dims[MAX_LAYERS + 1];
+      motor_layer_dims(dims, motor_layers, motor_hid0, motor_hid1);
+#pragma unroll 1
+      for (int sub = 0; sub < frame_skip; ++sub) block_motor_nets(motor_w, si[I_NU], motor_layers, dims, env_stride, m_nenv);
+    }
+    return;
+  }
+#endif
 #endif
 
   const int lane = threadIdx.x % GRP;
@@ -893,6 +1134,16 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
 #pragma unroll
   for (int k = 0; k < SPL; ++k) r_force[k][0] = r_force[k][1] = r_force[k][2] = 0.f;
 #if LHW_MOTOR
+#if LHW_TERRAIN
+  // the motor histories into the env's rings in device memory (the oldest
+  // slot at ring index m_head): 2 nu rows of MAX_H slots, the joint
+  // velocities' then the commanded torques', joint n's in row n of each;
+  // the substep count and the ring head are the same in every lane
+  float* const ring = rings + (size_t)b * (2 * nu * MAX_H);
+#pragma unroll 1
+  for (int k = lane; k < 2 * nu * MAX_H; k += GRP)
+    ring[k] = (k < nu * MAX_H) ? qd_hist_in[k * B + b] : ct_hist_in[(k - nu * MAX_H) * B + b];
+#else
   // the motor histories into their rings (the oldest slot at ring index
   // m_head), each joint's by the lane that owns it; the substep count and
   // the ring head are the same in every lane of the group
@@ -908,6 +1159,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         cth[a * MAX_H + h] = ct_hist_in[(a * MAX_H + h) * B + b];
       }
   }
+#endif
   int m_head = 0;
   int m_count = count_in[b];
   int m_dims[MAX_LAYERS + 1];
@@ -937,6 +1189,63 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     // ---- PD torque (through the motor hook) -> actuator force (ctrlrange
     // clamp, gear) ----
 #if LHW_MOTOR
+#if LHW_TERRAIN
+    // the owning lanes push their joints' histories into the rings and,
+    // where the nets run, into the newest slot of the joint's window; the
+    // group stages the rest of its windows, oldest first, into the union
+    // (cp.async, ring order in, window order out); the block runs the nets
+    // of all its envs (block_motor_nets: two block barriers); each owning
+    // lane of an env whose nets ran takes its joint's torque
+    const bool m_net = !settle && !m_warm;
+    const int m_wld = net_window_ld(motor_layers, m_dims);
+    float r_tau[APL];
+#pragma unroll
+    for (int k = 0; k < APL; ++k) {
+      const int a = lane + k * GRP;
+      r_tau[k] = 0.f;
+      if (a < nu && !settle) {
+        const float qa = q[si[I_ACTQ + a]], va = v[si[I_ACTD + a]];
+        r_tau[k] = r_kp[k] * (r_tgt[k] - qa) - r_kd[k] * va - r_bemf[k] * va;
+        if (m_push) {
+          ring[a * MAX_H + m_head] = va;
+          ring[(nu + a) * MAX_H + m_head] = r_tau[k];
+          if (m_net) {
+            work[a * m_wld + MAX_H - 1] = va;
+            work[a * m_wld + 2 * MAX_H - 1] = r_tau[k];
+          }
+        }
+      }
+    }
+    if (m_net) {
+#pragma unroll 1
+      for (int k = lane; k < 2 * nu * MAX_H; k += GRP) {
+        const int r = k / MAX_H, slot = k - r * MAX_H;
+        if (m_push && slot == m_head) continue;  // the newest, pushed above
+        const int pos = (slot >= m_next) ? slot - m_next : slot - m_next + MAX_H;
+        copy_async4(work + ((r < nu) ? r * m_wld + pos : (r - nu) * m_wld + MAX_H + pos), ring + k);
+      }
+      copy_async_wait();
+    }
+    if (lane == 0) work[W_MFLAG] = m_net ? 1.f : 0.f;
+    if (!settle) block_motor_nets(motor_w, nu, motor_layers, m_dims, env_stride, m_nenv);
+#pragma unroll
+    for (int k = 0; k < APL; ++k) {
+      const int a = lane + k * GRP;
+      if (a < nu) {
+        if (m_net) r_tau[k] = work[W_MTAU + a];
+        const float gear = sf[F_GEAR + a];
+        float ctrl = settle ? 0.f : r_tau[k] / gear;
+        const float lo = sf[F_CLO + a], hi = sf[F_CHI + a];
+        if (ctrl < lo) ctrl = lo;
+        if (ctrl > hi) ctrl = hi;
+        act[a] = gear * ctrl;
+      }
+    }
+    if (!settle) {  // settle substeps take no motor model
+      m_head = m_next;
+      ++m_count;
+    }
+#else
     // the owning lanes push their joints' histories; once warm the group
     // runs the joints' nets in turn, and each owning lane keeps its torque
     float r_tau[APL];
@@ -980,6 +1289,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
       m_head = m_next;
       ++m_count;
     }
+#endif
 #else
 #pragma unroll
     for (int k = 0; k < APL; ++k) {
@@ -1730,6 +2040,18 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
   for (int r = lane; r < 4 * nb; r += GRP) xquat_out[r * B + b] = xquat[r];
   for (int r = lane; r < 6 * nb; r += GRP) cvel_out[r * B + b] = cvel[r];
 #if LHW_MOTOR
+#if LHW_TERRAIN
+  // the histories out from the rings, oldest first (ring slot (m_head + i) %
+  // MAX_H to row n * MAX_H + i)
+#pragma unroll 1
+  for (int k = lane; k < 2 * nu * MAX_H; k += GRP) {
+    const int r = k / MAX_H, i = k - r * MAX_H;
+    const int slot = (m_head + i < MAX_H) ? m_head + i : m_head + i - MAX_H;
+    const float x = ring[r * MAX_H + slot];
+    if (r < nu) qd_hist_out[k * B + b] = x;
+    else ct_hist_out[(k - nu * MAX_H) * B + b] = x;
+  }
+#else
   // the histories out, oldest first, each joint's by its lane
 #pragma unroll
   for (int k = 0; k < APL; ++k) {
@@ -1743,6 +2065,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         ct_hist_out[(a * MAX_H + h) * B + b] = cth[a * MAX_H + r];
       }
   }
+#endif
   if (lane == 0) count_out[b] = m_count;
 #endif
 }
@@ -1766,7 +2089,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
   X(DOF_FREE_LIN) X(DOF_FREE_ANG) X(DOF_HINGE) X(DOF_SLIDE)                                    \
   X(SLOT_FLAT) X(SLOT_FLOOR) X(SLOT_HFIELD) X(SLOT_BOX)
 #if LHW_TERRAIN && LHW_MOTOR
-#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS) X(E_QDH) X(E_CTH)
+#define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X) X(LHW_MOTOR) X(MAX_H) X(MAX_HID) X(MAX_LAYERS) X(W_MTAU) X(NET_ENVS)
 #elif LHW_TERRAIN
 #define LHW_LAYOUT(X) LHW_LAYOUT_COMMON(X)
 #elif LHW_MOTOR
@@ -1794,8 +2117,10 @@ extern "C" int lhw_control_step_layout(const char** names, int* values, int n) {
 // signature is the same in every build up to the build's own arguments: the
 // motor build's (the stacked weights, the layer count and the two hidden
 // widths, the histories (nu * MAX_H, B) and the int32 count (1, B) in and
-// out; the terrain + motor build the same), then the launch plan, before the
-// stream: envs a block and the floats of an env's shared region (even, at least SM_FIXED, plus its terrain on
+// out; the terrain + motor build the same and then the rings' scratch, 2 nu
+// MAX_H floats an env in device memory), then the launch plan, before the
+// stream: envs a block (at most NET_ENVS in the terrain + motor build, whose
+// blocks are rounded up to whole warps) and the floats of an env's shared region (even, at least SM_FIXED, plus its terrain on
 // terrain), from the wrapper's launch_plan. On terrain floor_z is required,
 // the box blocks when the model has terrain boxes and the heightfield blocks
 // (hf_h, hf_w >= 2) when it has heightfield slots; the flat-floor builds
@@ -1818,12 +2143,18 @@ extern "C" int lhw_control_step(
 #if LHW_MOTOR
     const void* motor_w, int motor_layers, int motor_hid0, int motor_hid1, const void* qd_hist,
     const void* ct_hist, const void* count, void* qd_hist_out, void* ct_hist_out, void* count_out,
+#if LHW_TERRAIN
+    void* rings,
+#endif
 #endif
     int envs_per_block, int env_stride, void* stream) {
   if (batch <= 0) return 0;
 #if LHW_TERRAIN
   if (reuse != 1 || envs_per_block < 1 || envs_per_block * GRP > LHW_TPB || env_stride < SM_FIXED + 1 || env_stride % 2)
     return (int)cudaErrorInvalidValue;
+#if LHW_MOTOR
+  if (envs_per_block > NET_ENVS || rings == nullptr) return (int)cudaErrorInvalidValue;
+#endif
 #else
   if (reuse < 1 || (LHW_MOTOR && reuse != 1) || envs_per_block < 1 || envs_per_block * GRP > LHW_TPB ||
       env_stride < SM_FIXED || env_stride % 2)
@@ -1833,6 +2164,9 @@ extern "C" int lhw_control_step(
   const cudaError_t set = cudaFuncSetAttribute(LHW_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return (int)set;
   dim3 block(envs_per_block * GRP);
+#if LHW_TERRAIN && LHW_MOTOR
+  block.x = (block.x + 31u) & ~31u;  // whole warps: a warp runs a joint's nets
+#endif
   dim3 grid((batch + envs_per_block - 1) / envs_per_block);
   LHW_KERNEL<<<grid, block, smem, (cudaStream_t)stream>>>(
       batch, frame_skip, settle, dt, envs_per_block, env_stride,
@@ -1842,6 +2176,9 @@ extern "C" int lhw_control_step(
 #if LHW_MOTOR
       (const float*)motor_w, motor_layers, motor_hid0, motor_hid1, (const float*)qd_hist, (const float*)ct_hist,
       (const int*)count, (float*)qd_hist_out, (float*)ct_hist_out, (int*)count_out,
+#if LHW_TERRAIN
+      (float*)rings,
+#endif
 #endif
       (const float*)ftab, (const int*)itab,
       (const float*)qpos, (const float*)qvel, (const float*)target, (const float*)kp,

@@ -127,6 +127,9 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
                 problems.append(f"motor nets {dims} do not take 2 x {lay['MAX_H']} history inputs to 1 output for {nu} joints")
             if len(dims) - 1 > lay["MAX_LAYERS"] or max(dims[1:-1], default=0) > lay["MAX_HID"]:
                 problems.append(f"motor nets {dims} exceed {lay['MAX_LAYERS']} layers of width {lay['MAX_HID']}")
+            elif "W_MTAU" in lay and nu * net_window_floats(dims) > lay["W_MTAU"]:
+                problems.append(f"motor nets {dims}: {nu} joints' windows exceed the terrain + motor build's "
+                                f"{lay['W_MTAU']} floats of scratch")
     if on_terrain and not lay["LHW_TERRAIN"]:
         problems.append("terrain and heightfield models need the terrain build (K2, K3)")
     legs = leg_dofs(model) if lay["LHW_TERRAIN"] and lay.get("LHW_MOTOR") else []
@@ -145,6 +148,14 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
         problems.append("every body must follow its parent")
     if problems:
         raise ValueError("control-step kernel cannot run this model: " + "; ".join(problems))
+
+
+def net_window_floats(dims: list[int]) -> int:
+    """Floats of one joint's window in the terrain + motor build's scratch
+    union (csrc net_window_ld): its inputs, or a wider hidden layer written
+    over them; even."""
+    w = max(dims[:-1])
+    return w + w % 2
 
 
 def slot_kinds(model: Model, hfield: bool) -> list[str]:
@@ -293,9 +304,12 @@ def launch_plan(model: Model, batch: int, lay: dict, hfield_shape: tuple | None 
     """How the library of layout ``lay`` launches ``batch`` envs: a group of
     ``lanes`` (LHW_G) threads an env; ``envs_per_block`` envs a block, as
     many as leave BLOCKS_PER_SM blocks an SM room in shared memory
-    (at most LHW_TPB threads); each env's region of ``env_floats`` floats
-    (its fixed part SM_FIXED, which holds the lagged basis on the flat floor
-    and the motor histories in the motor builds, and on terrain its terrain;
+    (at most LHW_TPB threads; in the terrain + motor build at most NET_ENVS,
+    and ``threads`` rounded up to whole warps, whose groups past the block's
+    envs only meet the motor nets' barriers); each env's region of
+    ``env_floats`` floats (its fixed part SM_FIXED, which holds the lagged
+    basis on the flat floor and the motor histories in the motor build, K4,
+    and on terrain its terrain;
     even, for its float64 arrays, and not a multiple of 32, so that the envs
     of a warp start in different banks); ``smem_bytes`` of dynamic shared
     memory a block beside ``static_bytes`` of tables; ``grid`` blocks, the
@@ -311,8 +325,11 @@ def launch_plan(model: Model, batch: int, lay: dict, hfield_shape: tuple | None 
     if static + env_bytes > SMEM_BLOCK:
         raise ValueError(f"one env's shared region ({env_bytes} B) and the tables ({static} B) exceed {SMEM_BLOCK} B a block")
     budget = SMEM_SM // BLOCKS_PER_SM - SMEM_RESERVED
-    epb = max(1, min(lay["LHW_TPB"] // lanes, (budget - static) // env_bytes, batch))
-    return dict(lanes=lanes, envs_per_block=epb, threads=epb * lanes, env_floats=stride, smem_bytes=epb * env_bytes,
+    epb = max(1, min(lay["LHW_TPB"] // lanes, lay.get("NET_ENVS", batch), (budget - static) // env_bytes, batch))
+    threads = epb * lanes
+    if "NET_ENVS" in lay:
+        threads = -(-threads // 32) * 32
+    return dict(lanes=lanes, envs_per_block=epb, threads=threads, env_floats=stride, smem_bytes=epb * env_bytes,
                 static_bytes=static, grid=-(-batch // epb))
 
 
@@ -342,9 +359,11 @@ def _library(build_name: str) -> tuple[ctypes.CDLL, dict]:
         if not 0 < n <= cap:
             raise RuntimeError(f"kernel table layout: {n} entries, expected 1..{cap}")
         lay = {names[k].decode(): values[k] for k in range(n)}
-        # before the stream, the motor builds take the motor arguments, and
-        # every build its launch plan (envs a block, env stride)
+        # before the stream, the motor builds take the motor arguments (the
+        # terrain + motor build also the rings' scratch), and every build its
+        # launch plan (envs a block, env stride)
         own_args = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 if lay.get("LHW_MOTOR") else []
+        own_args += [ctypes.c_void_p] if lay.get("LHW_MOTOR") and lay["LHW_TERRAIN"] else []
         own_args = own_args + [ctypes.c_int] * 2
         lib.lhw_control_step.argtypes = (
             [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
@@ -429,8 +448,10 @@ def control_step_launch(
     tensors (``terrain``: the blocks of terrain_blocks, with ``hfield_shape``
     (H, W) where there is a heightfield; ``motor``: the blocks of
     motor_blocks); returns the 12 outputs as (rows, B) tensors, with a motor
-    also qd_hist, ct_hist (nu * H, B) and count (1, B) int32. Launches on
-    the current stream and does not synchronize."""
+    also qd_hist, ct_hist (nu * H, B) and count (1, B) int32. K5 and K6 keep
+    the histories' rings in a scratch allocated here, (B, 2 nu H) floats in
+    device memory. Launches on the current stream and does not
+    synchronize."""
     qpos = inputs["qpos"]
     device = qpos.device
     if device.type != "cuda":
@@ -470,6 +491,9 @@ def control_step_launch(
         motor_in = [weights.data_ptr(), motor["layers"], motor["hid0"], motor["hid1"],
                     motor["qd_hist"].data_ptr(), motor["ct_hist"].data_ptr(), count.data_ptr(),
                     *[x.data_ptr() for x in motor_out.values()]]
+        if lay["LHW_TERRAIN"]:
+            rings = torch.empty((batch, 2 * hrows), dtype=torch.float32, device=device)
+            motor_in.append(rings.data_ptr())
     if (lay["LHW_TERRAIN"] or lay.get("LHW_MOTOR")) and valid_reuse(frame_skip, reuse) != 1:
         raise ValueError(f"{name} runs at R=1 (the reference pins it on terrain and with a motor), got R={reuse}")
     plan = launch_plan(model, batch, lay, hfield_shape)

@@ -215,10 +215,10 @@ def test_terrain_motor_work_count(terrain_models):
 # shared region)
 SM_FIXED = 2188
 TERRAIN_PLAN = dict(TERRAIN, LHW_G=16, LHW_TPB=192, N_FTAB=748, N_ITAB=620, SM_FIXED=SM_FIXED)
-# the terrain + motor build: the terrain build's region, then the two history
-# rings (16 joints x 25 slots each), then the terrain
-TERRAIN_MOTOR = dict(TERRAIN_PLAN, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3, SM_FIXED=SM_FIXED + 800, E_QDH=SM_FIXED,
-                     E_CTH=SM_FIXED + 400)
+# the terrain + motor build: the terrain build's region (the motor histories
+# live in device memory); the nets' torques at W_MTAU of the scratch union,
+# past the joints' windows; at most NET_ENVS envs a block
+TERRAIN_MOTOR = dict(TERRAIN_PLAN, LHW_MOTOR=1, MAX_H=25, MAX_HID=64, MAX_LAYERS=3, W_MTAU=942, NET_ENVS=12)
 
 
 @pytest.fixture(scope="module")
@@ -255,25 +255,41 @@ def test_terrain_launch_plan_covers_every_env_once(terrain_models, terrain, batc
 @pytest.mark.parametrize("batch", [1, 3, 4096, 32768])
 @pytest.mark.parametrize("terrain", ["boxes", "hfield"])
 def test_terrain_motor_launch_plan_covers_every_env_once(terrain_models, terrain, batch):
-    """K5 and K6 launch like K2 and K3 with the two history rings in each
-    env's region before its terrain: every env exactly once, no block
+    """K5 and K6 launch like K2 and K3, whose region theirs is (the motor
+    histories live in device memory): every env exactly once, no block
     without an env, within the block's threads and shared memory, two
-    blocks an SM: 8 envs a block (K2/K3 12) at the training batch."""
+    blocks an SM: K2/K3's envs a block, 11 at the training batch, the block
+    rounded up to whole warps (the nets run a warp a joint), and the 12
+    joints' windows of the default nets within the scratch union."""
     model, hfield = terrain_models[terrain]
     floats = sk.terrain_floats(model, hfield)
     lay = TERRAIN_MOTOR
-    assert lay["E_QDH"] >= SM_FIXED and lay["E_CTH"] == lay["E_QDH"] + 25 * 16 and lay["E_CTH"] + 25 * 16 <= lay["SM_FIXED"]
+    assert lay["SM_FIXED"] == SM_FIXED and 12 * sk.net_window_floats(sk.motor_dims(_motor())) <= lay["W_MTAU"]
     plan = sk.launch_plan(model, batch, lay, hfield)
     epb = plan["envs_per_block"]
+    assert epb == sk.launch_plan(model, batch, TERRAIN_PLAN, hfield)["envs_per_block"] == min(11, batch)
     envs = [blk * epb + grp for blk in range(plan["grid"]) for grp in range(epb)]
     assert [e for e in envs if e < batch] == list(range(batch))
     assert (plan["grid"] - 1) * epb < batch
-    assert plan["threads"] == epb * 16 <= 192 and epb == min(8, batch)
+    assert plan["threads"] == -(-epb * 16 // 32) * 32 <= 192
     assert plan["env_floats"] % 2 == 0 and plan["env_floats"] % 32 != 0
     assert lay["SM_FIXED"] + floats <= plan["env_floats"] <= lay["SM_FIXED"] + floats + 3
     assert plan["static_bytes"] + plan["smem_bytes"] <= 232448
     if epb > 1:
         assert sk.BLOCKS_PER_SM * (plan["static_bytes"] + plan["smem_bytes"] + 1024) <= 233472
+
+
+def test_terrain_motor_nets_fit_the_scratch_union(terrain_models):
+    """K5's and K6's nets stage each joint's window (its 50 inputs, or a
+    wider hidden layer written over them) in the scratch union before
+    W_MTAU: jvrc's 12 joints fit at hidden widths 32 and 64 (600 and 768
+    floats of 942); where they would not fit, check_model refuses the nets."""
+    model, _ = terrain_models["boxes"]
+    assert [sk.net_window_floats(sk.motor_dims(_motor(hidden=h))) for h in ((32, 32), (64,), (20, 33), (51,))] == [50, 64, 50, 52]
+    sk.check_model(model, TERRAIN_MOTOR, motor=_motor(hidden=(64, 64)))
+    with pytest.raises(ValueError, match="windows exceed"):
+        sk.check_model(model, dict(TERRAIN_MOTOR, W_MTAU=12 * 64 - 2), motor=_motor(hidden=(64, 64)))
+    sk.check_model(model, dict(TERRAIN_MOTOR, W_MTAU=12 * 64 - 2), motor=_motor())
 
 
 def test_terrain_launch_plan_refuses_oversized_terrain(terrain_models):
@@ -385,25 +401,38 @@ def test_layout_dicts_match_the_source(build, tmp_path):
     assert {k: layout.get(k) for k in expected} == expected
 
 
-@pytest.mark.parametrize("name", ["unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"])
-def test_net_variants_apply_to_the_lane_source(name, tmp_path):
-    """ops/net_sweep.py's rejected designs of K4's nets still apply to the
-    lane source (each hunk of their diffs found exactly once) and change the
-    motor builds only (K4; K5 and K6): the flat and terrain builds
-    preprocess to the same text as the kept source's."""
-    variants = net_sweep.variant_sources(CSRC)
-    assert set(variants) == {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"}
+@pytest.mark.parametrize(
+    "build, name",
+    [("motor", n) for n in ("unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged")]
+    + [("terrain_motor", n) for n in ("shared_rings", "rings_in_device_memory", "tensor_cores")],
+)
+def test_net_variants_apply_to_the_lane_source(build, name, tmp_path):
+    """ops/net_sweep.py's rejected designs of the motor nets still apply to
+    the lane source (each hunk of their diffs found exactly once). K4's
+    change the motor builds only (K4; K5 and K6, which compile its net
+    function too): the flat and terrain builds preprocess to the same text
+    as the kept source's. K5's and K6's other designs (the rings in each
+    env's shared region; the rings in device memory with the per-group nets;
+    the nets' hidden layers on tensor cores) change the terrain + motor build only, so K1-K4
+    are the same in all four."""
+    variants = net_sweep.variant_sources(CSRC, build)
+    assert set(variants) == {"motor": {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"},
+                             "terrain_motor": {"shared_rings", "rings_in_device_memory", "tensor_cores"}}[build]
     kept_path = CSRC / "control_step_lanes.cu"
     text = variants[name]
     assert text != kept_path.read_text()
-    marker = {"units_in_registers": "float acc[HPL];", "block_staged": "stage_joint_weights(wbuf"}.get(name, f"#pragma unroll {name[6:]}\n")
-    assert marker in text
+    marker = {"units_in_registers": "float acc[HPL];", "block_staged": "stage_joint_weights(wbuf",
+              "shared_rings": "#define E_QDH (E_WORK + W_SIZE)",
+              "rings_in_device_memory": "group_motor_net(motor_w, nu, motor_layers, m_dims, n, ring + n * MAX_H",
+              "tensor_cores": "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"}
+    assert marker.get(name, f"#pragma unroll {name[6:]}\n") in text
     path = tmp_path / "variant.cu"
     path.write_text(text)
-    for build in sk.LIBRARIES:
-        defines = sk.LIBRARIES[build][2]
+    changed = ("motor", "terrain_motor") if build == "motor" else ("terrain_motor",)
+    for lib in sk.LIBRARIES:
+        defines = sk.LIBRARIES[lib][2]
         same = _preprocess(path, defines, tmp_path) == _preprocess(kept_path, defines, tmp_path)
-        assert same == (build not in ("motor", "terrain_motor")), build
+        assert same == (lib not in changed), lib
     # block_staged's two buffers of one joint's weights: 2 x 2722 floats at the default widths
     assert net_sweep.stage_floats(sk.motor_dims(_motor())) == 2 * (1 + 50 * 32 + 32 + 32 * 32 + 32 + 32 + 1)
 
