@@ -119,7 +119,23 @@ the phase's own seconds:
    (4 substeps) on the card held to a float64 run of the same function on
    the CPU (1e-5). Then h1 with --profile-dir for 3
    iterations: the 5 CUDA kernels with the most device time in the trace
-   and the device's idle share over the traced iteration;
+   and the device's idle share over the traced iteration. Then eval's task
+   markers: eval --path --out .gif (2 episodes of at most 20 steps) on the
+   jvrc_step and jvrc_walk_rough runs with the motor config (steps in K5 /
+   K6, the reset in K2 / K3) and on the h1_walk run (K1), each launch
+   counted: one marker dict per frame of episode 0 with the env kind's
+   keys, jvrc_step's targets rows of the shown plan and its boxes the env's
+   terrain row of env 0, jvrc_walk_rough's 16x16 field. The card machine
+   has no matplotlib or imageio, so the drawing call is replaced by a
+   recorder there and no .gif is written. The live viewer's stepper
+   (rl/viewer.py PolicyStepper, ViewerLoop with a fake window): episode 0
+   of the h1_walk run at B=1 through K1, its qpos held step by step to
+   eval's episode 0 at B=2 (bit for bit, else 1e-4). Data parallel: one
+   PPO iteration of jvrc_walk at the workload on one NCCL rank
+   (parallel/mesh.py) against the plain trainer from the same seed:
+   parameters, Adam moments, norm and metrics bit for bit, else 1e-6
+   relative; the NCCL all-reduce's share of the optimize time (one GPU:
+   more ranks are checked by the CPU tests only);
 5. the kernel table (K1-K6).
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -145,6 +161,205 @@ def log(msg: str) -> None:
     now = time.time()
     print(f"[{now - T0:7.1f} s | +{now - _LAST[0]:6.1f} s] {msg}", flush=True)
     _LAST[0] = now
+
+
+MARK_STEPS = 20  # the marker and viewer phases' episodes: at most 20 steps
+MARKER_KEYS = {
+    "jvrc_step": {"mode", "targets", "sequence", "terrain_pos", "terrain_size", "terrain_yaw", "floor_z"},
+    "jvrc_walk_rough": {"mode", "mode_ref", "hfield", "hfield_x0y0", "hfield_cell"},
+    "h1_walk": {"mode", "mode_ref"},
+}
+
+
+def markers_viewer_data_parallel(dev, logroot, runs, cli_path, jvrc_env, num_envs, rollout, smi, path_launches, results):
+    """Phase 4's last paths on the card: eval's task markers (K5, K6, K1),
+    the live viewer's stepper (K1 at B=1) and the data-parallel trainer on
+    one NCCL rank (K1), each checked; raises on a failed check. ``runs``:
+    the run directories of the jvrc_step and jvrc_walk_rough runs with the
+    motor config and of the h1_walk run."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from learninghumanoidwalking_tpu_torch import run_experiment as cli
+    from learninghumanoidwalking_tpu_torch.envs.jvrc_step import JvrcStepEnv
+    from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
+    from learninghumanoidwalking_tpu_torch.parallel import mesh
+    from learninghumanoidwalking_tpu_torch.rl import render as render_mod
+    from learninghumanoidwalking_tpu_torch.rl.eval import load_policy
+    from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
+    from learninghumanoidwalking_tpu_torch.rl.viewer import PolicyStepper, ViewerLoop
+
+    # -- the markers: eval --out .gif records render_markers(state, 0) at
+    # each step of episode 0 from the card's states. matplotlib and imageio
+    # do not import on the card machine (PERF.md), so the drawing call is
+    # replaced by a recorder of what eval hands it: the markers and the
+    # trajectory. jvrc_step's render_markers is wrapped to read the full
+    # batch's terrain row of env 0 beside it.
+    drawn, terrain_rows = [], []
+
+    def recorder(env, qpos_traj, out_path, fps=40, markers=None):
+        drawn.append(dict(traj=qpos_traj, markers=markers))
+        return Path(out_path), "none: recorded, no matplotlib or imageio on this machine"
+
+    step_markers = JvrcStepEnv.render_markers
+
+    def recording_step_markers(self, states, i):
+        terrain_rows.append(self._terrain(states.task).pos[i].cpu().numpy())
+        return step_markers(self, states, i)
+
+    render_trajectory = render_mod.render_trajectory
+    render_mod.render_trajectory, JvrcStepEnv.render_markers = recorder, recording_step_markers
+    evals = {}
+    try:
+        for env_name, step_k, settle_k in (("jvrc_step", "K5", "K2"), ("jvrc_walk_rough", "K6", "K3"), ("h1_walk", "K1", "K1")):
+            drawn.clear()
+            terrain_rows.clear()
+            if step_k == "K1":
+                expected = lambda out: 1 + out["steps"]  # noqa: E731
+            else:
+                expected = lambda out, a=step_k, b=settle_k: {a: out["steps"], b: 1}  # noqa: E731
+            ev = cli_path(f"{env_name} eval --out .gif (markers; 2 episodes, {MARK_STEPS} steps)", cli.evaluate,
+                          ["--path", runs[env_name], "--episodes", "2", "--max-steps", str(MARK_STEPS), "--out",
+                           os.path.join(logroot, env_name + "_markers.gif"), "--device", "cuda"], expected)
+            evals[env_name] = ev
+            markers, n0 = ev["markers"], ev["lengths"][0]
+            ok = (len(drawn) == 1 and drawn[0]["markers"] is markers and len(markers) == n0
+                  and drawn[0]["traj"].shape == (n0, ev["trajectories"][0].shape[1])
+                  and all(set(m) == MARKER_KEYS[env_name] for m in markers))
+            note = ""
+            if env_name == "jvrc_step":
+                targets_in_plan = all(bool(np.all(np.any(np.all(m["sequence"][None] == m["targets"][:, None], axis=-1), axis=1)))
+                                      for m in markers)
+                boxes_equal = len(terrain_rows) == n0 and all(np.array_equal(m["terrain_pos"], r) for m, r in zip(markers, terrain_rows))
+                ok = ok and targets_in_plan and boxes_equal
+                note = (f"both targets rows of the shown plan in every frame {targets_in_plan}, terrain boxes equal the env's "
+                        f"terrain row of env 0 {boxes_equal} ({markers[0]['terrain_pos'].shape[0]} boxes, plan "
+                        f"{markers[0]['sequence'].shape[0]} steps, mode {markers[0]['mode']})")
+            elif env_name == "jvrc_walk_rough":
+                fields = all(m["hfield"].shape == (16, 16) and m["hfield"].dtype == np.float32 for m in markers)
+                ok = ok and fields
+                note = f"field 16x16 float32 in every frame {fields}, modes {sorted({m['mode'] for m in markers})}"
+            else:
+                note = f"modes {sorted({m['mode'] for m in markers})}"
+            results[f"phase 4 markers {env_name}"] = dict(frames=len(markers), episode_length=n0, renderer=ev["renderer"])
+            log(f"phase 4 markers {env_name}: {'PASS' if ok else 'FAIL'} | one marker dict per frame of episode 0 "
+                f"({len(markers)} of {n0}), keys {sorted(MARKER_KEYS[env_name])} | {note} | renderer: {ev['renderer']}")
+            if not ok:
+                raise RuntimeError(f"eval's task markers on {env_name} are not as expected")
+    finally:
+        render_mod.render_trajectory, JvrcStepEnv.render_markers = render_trajectory, step_markers
+
+    # -- the viewer's stepper: episode 0 of the h1_walk run at B=1 through
+    # K1, driven by ViewerLoop with a fake window (no mujoco there), held
+    # step by step to eval's episode 0 at B=2 from the same seed
+    class FakeViewer:
+        syncs = 0
+
+        def is_running(self):
+            return True
+
+        def sync(self):
+            self.syncs += 1
+
+    policy, _, (env, _) = load_policy(runs["h1_walk"], device=dev)
+    stepper = PolicyStepper(policy, env, dev)
+    for c in sk.counters.values():
+        c.reset()
+    t0 = time.time()
+    stepper.reset(0)
+    fake, qs = FakeViewer(), []
+    n = ViewerLoop(env.control_dt, realtime=False).run_episode(fake, stepper.step, lambda: qs.append(stepper.qpos()), MARK_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {k: c.launches for k, c in sk.counters.items()}
+    for k, v in launches.items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    ref = evals["h1_walk"]["trajectories"][0]
+    m = min(n, len(ref))
+    diff = float(np.abs(np.stack(qs[:m]) - ref[:m]).max())
+    want = dict.fromkeys(sk.counters, 0)
+    want["K1"] = 1 + n
+    ok = n == len(ref) and fake.syncs == n and diff <= 1e-4 and launches == want
+    results["phase 4 viewer stepper"] = dict(steps=n, eval_length=len(ref), max_abs_qpos_diff=diff, launches=launches, seconds=seconds)
+    log(f"phase 4 viewer stepper (h1_walk, episode 0, B=1, ViewerLoop with a fake window): {'PASS' if ok else 'FAIL'} | "
+        f"{n} steps ({fake.syncs} syncs), eval's episode 0 at B=2 {len(ref)} | qpos "
+        f"{'equal bit for bit' if diff == 0 else f'max abs difference {diff:.3g} (limit 1e-4)'} | launches {launches} "
+        f"(expected {want}) | {seconds:.2f} s")
+    if not ok:
+        raise RuntimeError("the viewer's stepper left eval's episode 0")
+
+    # -- data parallel: one NCCL rank at full width against the plain trainer
+    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout, minibatch_size=32768, seed=0)
+    for c in sk.counters.values():
+        c.reset()
+    out = {}
+    for mode in ("plain", "nccl"):
+        shard = None
+        if mode == "nccl":
+            t0 = time.time()
+            shard = mesh.init_rank(0, 1, "cuda", os.path.join(tempfile.mkdtemp(dir=logroot), "store"), num_envs)
+            shard.all_reduce([torch.zeros(1, device=dev)])  # NCCL builds its communicator at the first collective
+            torch.cuda.synchronize()
+            init_s = time.time() - t0
+        try:
+            trainer = PPO(jvrc_env, cfg, device=dev, shard=shard)
+            ts = trainer.init_state()
+            t0 = time.time()
+            ts, batch, roll = trainer._sample_iteration(ts)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            if shard is not None:
+                shard.timed = True
+            ts, aux = trainer._optimize_iteration(ts, batch)
+            torch.cuda.synchronize()
+            t2 = time.time()
+            out[mode] = dict(ts=ts, metrics={k: float(v) for k, v in {**roll, **aux}.items()}, sample_s=t1 - t0, optimize_s=t2 - t1,
+                             reduce_s=shard.reduce_seconds if shard is not None else 0.0)
+            del batch
+        finally:
+            if shard is not None:
+                dist.destroy_process_group()
+    launches = {k: c.launches for k, c in sk.counters.items()}
+    for k, v in launches.items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    a, b = out["nccl"]["ts"], out["plain"]["ts"]
+    pairs = [(f"actor.{k}", x, a.actor.state_dict()[k]) for k, x in b.actor.state_dict().items()]
+    pairs += [(f"critic.{k}", x, a.critic.state_dict()[k]) for k, x in b.critic.state_dict().items()]
+    for name, oa, ob in (("actor_opt", a.actor_opt, b.actor_opt), ("critic_opt", a.critic_opt, b.critic_opt)):
+        pairs += [(f"{name}.mu{i}", y, x) for i, (x, y) in enumerate(zip(oa.mu, ob.mu))]
+        pairs += [(f"{name}.nu{i}", y, x) for i, (x, y) in enumerate(zip(oa.nu, ob.nu))]
+        pairs += [(f"{name}.count", ob.count, oa.count), (f"{name}.notfinite", ob.notfinite_count, oa.notfinite_count)]
+    pairs += [(f"norm.{f}", getattr(b.norm, f), getattr(a.norm, f)) for f in ("mean", "var", "count")]
+    same = all(torch.equal(x, y) for _, x, y in pairs)
+    same_metrics = out["nccl"]["metrics"] == out["plain"]["metrics"]
+
+    def rel(x, y):
+        return float((x.double() - y.double()).abs().max()) / max(float(x.double().abs().max()), 1e-30)
+
+    worst = max(max(rel(x, y) for _, x, y in pairs),
+                max(abs(out["nccl"]["metrics"][k] - v) / max(abs(v), 1e-30) for k, v in out["plain"]["metrics"].items()))
+    want = dict.fromkeys(sk.counters, 0)
+    want["K1"] = 2 * (1 + rollout + 1)
+    finite = all(np.isfinite(v) for v in out["nccl"]["metrics"].values())
+    ok = (same and same_metrics or worst <= 1e-6) and finite and launches == want
+    share = out["nccl"]["reduce_s"] / out["nccl"]["optimize_s"]
+    results["phase 4 data parallel"] = dict(bit_for_bit=same and same_metrics, worst_rel=worst, launches=launches,
+                                            **{f"{k}_{m}": v for k in out for m, v in out[k].items() if m != "ts" and m != "metrics"},
+                                            nccl_share_of_optimize=share, nccl_init_s=init_s, metrics=out["nccl"]["metrics"])
+    log(f"phase 4 data parallel (jvrc_walk, {num_envs} envs, rollout {rollout}, minibatch 32768, 1 iteration; one NCCL rank "
+        f"against the plain trainer from the same seed; the card machine has one GPU, so only the CPU test with 2 gloo ranks "
+        f"checks more than one rank): {'PASS' if ok else 'FAIL'} | params, Adam moments, norm "
+        f"{'and metrics equal bit for bit' if same and same_metrics else f'worst relative difference {worst:.3g} (limit 1e-6)'} | "
+        f"sample {out['plain']['sample_s']:.2f} / {out['nccl']['sample_s']:.2f} s, optimize {out['plain']['optimize_s']:.2f} / "
+        f"{out['nccl']['optimize_s']:.2f} s (plain / NCCL; the process group and its first all-reduce before, {init_s:.2f} s), NCCL all-reduce {1e3 * out['nccl']['reduce_s']:.1f} ms = "
+        f"{share:.4f} of the NCCL run's optimize (each all-reduce synchronized) | launches {launches} (expected {want}) | {smi}")
+    if not ok:
+        raise RuntimeError("the one-rank NCCL iteration left the plain trainer's")
 
 
 def main() -> int:
@@ -174,7 +389,7 @@ def main() -> int:
     from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params, tree_map
     from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
     from learninghumanoidwalking_tpu_torch.rl import networks
-    from learninghumanoidwalking_tpu_torch.rl.checkpoint import Checkpointer
+    from learninghumanoidwalking_tpu_torch.rl.checkpoint import Checkpointer, find_latest_run
     from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
     from learninghumanoidwalking_tpu_torch.rl.ppo import mask_carry
     from learninghumanoidwalking_tpu_torch.rl.trace import summarize_trace
@@ -1506,6 +1721,12 @@ def main() -> int:
         + " | ".join(f"{k}: {v['count']} span(s), {v['host_ms']:.1f} ms, device idle share {v['idle_share']:.4f}" for k, v in spans.items()))
     if "ppo.iteration" not in spans or not trace["top_kernels"] or not any("control_step" in k[0] for k in trace["top_kernels"]):
         raise RuntimeError("the profiler trace holds no traced iteration or no control-step kernel")
+
+    # ---- phase 4: eval's task markers, the viewer's stepper, data parallel ----
+    runs = {name: str(find_latest_run(os.path.join(logroot, d)))
+            for name, d in (("jvrc_step", "jvrc_step_motor"), ("jvrc_walk_rough", "jvrc_walk_rough_motor"), ("h1_walk", "h1_walk"))}
+    markers_viewer_data_parallel(dev, logroot, runs, cli_path, jvrc_env, num_envs, rollout, smi, path_launches, results)
+    save_results()
     shutil.rmtree(logroot)
 
     results["profiler"] = trace

@@ -349,6 +349,11 @@ class HumanoidEnv(Env):
             physics.xpos[:, self.root_idx], physics.xquat[:, self.root_idx], self._terrain(states.task), sites
         )
 
+    def render_markers(self, states: EnvState, i: int) -> dict | None:
+        """Overlay data of env ``i`` for rendering (JAX envs/humanoid.py:389):
+        the task envs give their targets, terrain or mode; None is no overlay."""
+        return None
+
     # ----------------------------------------------------- hooks (override)
 
     def _task_reset(self, draws, n: int, iteration, physics):

@@ -16,6 +16,7 @@ import torch
 from learninghumanoidwalking_tpu_torch.envs.humanoid import HumanoidEnv, load_config
 from learninghumanoidwalking_tpu_torch.models import jvrc
 from learninghumanoidwalking_tpu_torch.physics import engine, interface
+from learninghumanoidwalking_tpu_torch.physics.model import tree_map
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.tasks import rewards, stepping
 from learninghumanoidwalking_tpu_torch.utils import maths
@@ -147,6 +148,22 @@ class JvrcStepEnv(HumanoidEnv):
 
     def _terrain(self, task):
         return stepping.make_terrain(task.sequence, task.seq_len, task.mode)
+
+    def render_markers(self, states, i: int) -> dict:
+        """Env ``i``'s footstep targets, plan, terrain boxes and mode, world
+        frame (JAX envs/jvrc_step.py:163), on the host."""
+        task = tree_map(lambda x: x[i : i + 1], states.task)
+        terrain = self._terrain(task)
+        seq = task.sequence[0].cpu().numpy()
+        return {
+            "mode": self.MODE_NAMES[int(task.mode[0])],
+            "targets": seq[np.asarray([int(task.t1[0]), int(task.t2[0])])],  # (2, 4) x, y, z, theta
+            "sequence": seq[: int(task.seq_len[0])],
+            "terrain_pos": terrain.pos[0].cpu().numpy(),
+            "terrain_size": terrain.size[0].cpu().numpy(),
+            "terrain_yaw": terrain.yaw[0].cpu().numpy(),
+            "floor_z": float(terrain.floor_z[0]),
+        }
 
     def _done(self, physics) -> torch.Tensor:
         selfcol = engine.self_collision(self.model, physics.xpos, physics.xquat)

@@ -18,6 +18,7 @@ import torch
 
 from learninghumanoidwalking_tpu_torch.envs.humanoid import load_config
 from learninghumanoidwalking_tpu_torch.envs.jvrc_walk import JvrcWalkEnv
+from learninghumanoidwalking_tpu_torch.envs.walking_mixin import walking_markers
 from learninghumanoidwalking_tpu_torch.models import jvrc
 from learninghumanoidwalking_tpu_torch.physics.engine import Terrain
 from learninghumanoidwalking_tpu_torch.physics.model import tree_map
@@ -81,3 +82,14 @@ class JvrcWalkRoughEnv(JvrcWalkEnv):
 
     def _reward(self, state, physics, task, target):
         return super()._reward(state, physics, task.walk, target)
+
+    def render_markers(self, states, i: int) -> dict:
+        """Env ``i``'s walking mode and its current heightfield, re-jitters
+        included (JAX envs/jvrc_walk_rough.py:102), on the host."""
+        terrain = states.task.terrain
+        return {
+            **walking_markers(self.MODE_NAMES, states.task.walk, i),
+            "hfield": terrain.hfield[i].cpu().numpy(),
+            "hfield_x0y0": terrain.hfield_x0y0[i].cpu().numpy(),
+            "hfield_cell": terrain.hfield_cell[i].cpu().numpy(),
+        }

@@ -18,6 +18,11 @@ class WalkingTaskMixin:
     num_external_obs = 8  # clock(2) + mode one-hot(3) + mode_ref(3)
     MODE_NAMES = ("FORWARD", "INPLACE", "STANDING")
 
+    def render_markers(self, states, i: int) -> dict:
+        """Env ``i``'s walking mode and velocity reference (JAX
+        envs/walking_mixin.py:25), on the host."""
+        return walking_markers(self.MODE_NAMES, states.task, i)
+
     def _setup_walking(self) -> None:
         task_cfg = self.cfg.task
         self.goal_height = float(task_cfg.goal_height)
@@ -78,3 +83,8 @@ class WalkingTaskMixin:
     def _done(self, physics) -> torch.Tensor:
         selfcol = engine.self_collision(self.model, physics.xpos, physics.xquat)
         return walking.done(physics.qpos[:, 2], selfcol)
+
+
+def walking_markers(mode_names, task, i: int) -> dict:
+    """The mode overlay of env ``i`` of a WalkingState batch."""
+    return {"mode": mode_names[int(task.mode[i])], "mode_ref": task.mode_ref[i].cpu().numpy()}

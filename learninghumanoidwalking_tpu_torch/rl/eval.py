@@ -6,8 +6,9 @@ a frozen feed-forward expert for imitation and refuses a recurrent one, as
 the JAX package does; ``evaluate_policy`` replays the deterministic policy
 for a few episodes, run as one batch of envs through ``step_batch`` (on the
 card, through the control-step kernel), a recurrent policy with its carry,
-and writes each episode's qpos trajectory to an .npz. Rendering to video
-and the live viewer are not ported yet.
+and writes each episode's qpos trajectory to an .npz, or renders episode 0
+with its task markers to a video (rl/render.py). The live viewer is
+rl/viewer.py.
 """
 
 from __future__ import annotations
@@ -100,10 +101,16 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
     of at most ``max_steps`` steps, as one batch: episode i's draws come from
     a generator seeded with 1000 + i, and its trajectory ends at its first
     ``done``. Writes the qpos trajectories to ``out`` (.npz, ``episode_<i>``
-    of shape (length_i, nq)). Returns the trajectories, the episode rewards
-    and lengths, and the control steps run."""
-    if out is not None and Path(out).suffix in (".mp4", ".gif"):
-        raise NotImplementedError("rendering to video is not ported yet (ROADMAP queue 1: render and MJCF)")
+    of shape (length_i, nq)), or, for an ``out`` of .gif or .mp4, renders
+    episode 0 with its task markers (``env.render_markers`` of env 0 at each
+    of its steps) through rl/render.py. Returns the trajectories, the
+    episode rewards and lengths, the control steps run, episode 0's markers
+    (None unless rendering) and the renderer that drew the video."""
+    video = out is not None and Path(out).suffix in (".mp4", ".gif")
+    if video:
+        from learninghumanoidwalking_tpu_torch.rl.render_gl import check_writer
+
+        check_writer(Path(out))
     policy, _, (env, meta) = load_policy(path, device=device)
     recurrent = isinstance(policy, RecurrentPolicy)
     print(f"evaluating {meta['env']} policy from {path}" + (" (recurrent)" if recurrent else ""), flush=True)
@@ -120,6 +127,8 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
     qpos = []
     steps = 0
     carry = policy.init_carry(episodes) if recurrent else None
+    render_markers = getattr(env, "render_markers", lambda states, i: None)
+    markers = [] if video else None
     while steps < max_steps and bool(alive.any()):
         if recurrent:
             carry, action = policy.apply(carry, state.obs)
@@ -130,6 +139,8 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
         total = total + torch.where(alive, state.reward, 0.0)
         length = length + alive.long()
         qpos.append(state.physics.qpos.cpu())
+        if video and bool(alive[0]):
+            markers.append(render_markers(state, 0))
         alive = alive & ~state.done
     traj = torch.stack(qpos).numpy() if qpos else np.zeros((0, episodes, env.model.nq), np.float32)
     lengths = length.cpu().tolist()
@@ -137,9 +148,16 @@ def evaluate_policy(path: str | Path, episodes: int = 3, max_steps: int = 400, o
     trajectories = [traj[: lengths[i], i] for i in range(episodes)]
     for i in range(episodes):
         print(f"episode {i}: reward {rewards[i]:.2f}  length {lengths[i]}", flush=True)
-    if out is not None:
+    renderer = None
+    if video:
+        from learninghumanoidwalking_tpu_torch.rl.render import render_trajectory
+
+        out, renderer = render_trajectory(env, trajectories[0], out, markers=markers)
+        print(f"rendered episode 0 to {out} ({renderer})", flush=True)
+    elif out is not None:
         out = Path(out)
         out.parent.mkdir(parents=True, exist_ok=True)
         np.savez(out, **{f"episode_{i}": q for i, q in enumerate(trajectories)})
         print(f"wrote trajectories to {out}", flush=True)
-    return dict(trajectories=trajectories, rewards=rewards, lengths=lengths, steps=steps)
+    return dict(trajectories=trajectories, rewards=rewards, lengths=lengths, steps=steps, markers=markers,
+                renderer=renderer)

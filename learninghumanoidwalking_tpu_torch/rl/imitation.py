@@ -24,9 +24,12 @@ class ImitationQuery(NamedTuple):
 ImitationProjector = Callable[[torch.Tensor], ImitationQuery]
 
 
-def imitation_loss(query: ImitationQuery, student_mean: torch.Tensor, expert_mean: torch.Tensor) -> torch.Tensor:
-    """Masked MSE between the student's action means and the expert's."""
+def imitation_loss(query: ImitationQuery, student_mean: torch.Tensor, expert_mean: torch.Tensor,
+                   mask_total: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked MSE between the student's action means and the expert's.
+    ``mask_total``: the mask's sum over the whole minibatch (default: over
+    these samples), for a data-parallel rank's share."""
     pred = student_mean[:, list(query.action_indices)]
     mask = query.sample_mask.to(pred.dtype)[:, None]
-    num = torch.sum(mask) * pred.shape[-1]
-    return torch.sum(torch.square(pred - expert_mean) * mask) / torch.clamp_min(num, 1.0)
+    mask_total = torch.sum(mask) if mask_total is None else mask_total
+    return torch.sum(torch.square(pred - expert_mean) * mask) / torch.clamp_min(mask_total * pred.shape[-1], 1.0)

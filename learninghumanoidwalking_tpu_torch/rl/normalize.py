@@ -37,12 +37,16 @@ def init_norm(shape, mean=None, std=None, device="cuda") -> RunningNorm:
     )
 
 
-def update_norm(norm: RunningNorm, batch: torch.Tensor) -> RunningNorm:
-    """Welford parallel merge of the batch moments into the running ones."""
+def update_norm(norm: RunningNorm, batch: torch.Tensor, all_reduce=None) -> RunningNorm:
+    """Welford parallel merge of the batch moments into the running ones.
+    With ``all_reduce`` (a data-parallel rank's sum over ranks), the batch
+    is every rank's rows together."""
     batch = batch.reshape(-1, batch.shape[-1])
-    b_mean = torch.mean(batch, dim=0)
-    b_var = torch.var(batch, dim=0, unbiased=False)
-    b_count = batch.shape[0]
+    reduce = (lambda xs: xs) if all_reduce is None else all_reduce
+    b_sum, b_count = reduce([torch.sum(batch, dim=0), torch.tensor(float(batch.shape[0]), device=batch.device)])
+    b_mean = b_sum / b_count
+    (b_sq,) = reduce([torch.sum(torch.square(batch - b_mean), dim=0)])
+    b_var = b_sq / b_count
 
     delta = b_mean - norm.mean
     tot = norm.count + b_count

@@ -16,11 +16,18 @@ With ``recurrent``, the actor and critic are LSTMs whose carries ride along
 the persistent env batch (zeroed where an env finishes) and the update
 replays each minibatch of env sequences from the rollout's first carries
 (BPTT over the rollout window), as the JAX trainer's recurrent branch does.
+
+With a ``DataParallel`` (parallel/mesh.py), the trainer is one rank of a
+data-parallel run: it steps its rows of the env batch and takes part in
+the global statistics, minibatches and gradient sums, so that n ranks
+compute what one does on the whole batch. Every loss and statistic is a
+sum over samples divided by the global count, on one rank as on many.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from pathlib import Path
 from typing import Callable
@@ -176,7 +183,7 @@ class PPO:
     rl/eval.py::load_expert gives), the loss adds the imitation term."""
 
     def __init__(self, env: Env, config: PPOConfig, device: str | torch.device = "cuda", draws: Draws | None = None,
-                 imitation_projector: Callable | None = None, expert: Callable | None = None):
+                 imitation_projector: Callable | None = None, expert: Callable | None = None, shard=None):
         self.env = env
         self.cfg = config
         self.device = torch.device(device)
@@ -184,7 +191,10 @@ class PPO:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             draws = Draws(gen)
-        self.draws = draws
+        # a rank of a data-parallel run (parallel/mesh.py DataParallel): its
+        # rows of every per-env draw
+        self.shard = shard
+        self.draws = draws if shard is None else shard.row_draws(draws)
         self.net_dtype = getattr(torch, config.net_dtype)
         self.obs_mirror = None
         self.act_mirror = None
@@ -198,12 +208,38 @@ class PPO:
         self.imitation_projector = imitation_projector
         self.expert = expert
 
+    @property
+    def n_local(self) -> int:
+        """The envs this trainer steps: the batch, or a rank's rows of it."""
+        return self.cfg.num_envs if self.shard is None else self.shard.local_envs
+
+    @property
+    def lead(self) -> bool:
+        """Whether this trainer evaluates, logs and checkpoints (rank 0)."""
+        return self.shard is None or self.shard.rank == 0
+
+    def _sums(self, *xs) -> list:
+        """Each tensor's sum, over every rank's samples."""
+        sums = [torch.sum(x) for x in xs]
+        return sums if self.shard is None else self.shard.all_reduce(sums)
+
+    def _local(self, idx: torch.Tensor | slice, samples: bool = False):
+        """This rank's share of the global env rows ``idx`` or, with
+        ``samples``, of the flat (time-major, env-minor) samples ``idx``,
+        as local indices; ``idx`` itself without a shard."""
+        if self.shard is None:
+            return idx
+        if isinstance(idx, slice):
+            idx = torch.arange(idx.start, idx.stop, device=self.device)
+        idx = idx.to(self.device)
+        return self.shard.local_samples(idx) if samples else self.shard.local_rows(idx)
+
     # ------------------------------------------------------------------ init
 
     def init_state(self, gen: torch.Generator | None = None) -> TrainState:
         """Networks, optimizers and norm (init_networks) and a fresh env batch."""
         ts = self.init_networks(gen)
-        return dataclasses.replace(ts, env_state=self.env.reset_batch(self.cfg.num_envs, self.draws))
+        return dataclasses.replace(ts, env_state=self.env.reset_batch(self.n_local, self.draws))
 
     def init_networks(self, gen: torch.Generator | None = None) -> TrainState:
         """A TrainState without an env batch (``env_state`` None): the
@@ -235,8 +271,8 @@ class PPO:
             norm=norm,
             env_state=None,
             iteration=0,
-            actor_carry=self.initial_carry(cfg.num_envs) if cfg.recurrent else None,
-            critic_carry=self.initial_carry(cfg.num_envs) if cfg.recurrent else None,
+            actor_carry=self.initial_carry(self.n_local) if cfg.recurrent else None,
+            critic_carry=self.initial_carry(self.n_local) if cfg.recurrent else None,
         )
 
     def initial_carry(self, batch: int) -> tuple:
@@ -253,8 +289,10 @@ class PPO:
 
     def _reset_pool(self, ts: TrainState) -> EnvState:
         """The iteration's reset pool, rotated across the batch by the iteration index."""
-        pool = self.env.reset_batch(self.cfg.num_envs, self.draws, ts.iteration)
         shift = ts.iteration
+        if self.shard is not None:  # this rank's rows of the rotated pool
+            return self.env.reset_batch(self.n_local, self.draws.shifted(shift), ts.iteration)
+        pool = self.env.reset_batch(self.cfg.num_envs, self.draws, ts.iteration)
         return tree_map(lambda x: torch.roll(x, shift, dims=0) if torch.is_tensor(x) else x, pool)
 
     def _sample_action(self, mean, log_std, deterministic: bool):
@@ -270,7 +308,7 @@ class PPO:
         if self.cfg.recurrent:
             return self._rollout_recurrent(ts, deterministic)
         cfg = self.cfg
-        n = cfg.num_envs
+        n = self.n_local
         pool = self._reset_pool(ts)
         pool_values = self._value(ts.critic, ts.norm, pool.obs)
         value = self._value(ts.critic, ts.norm, ts.env_state.obs)
@@ -345,7 +383,11 @@ class PPO:
             traj["reward"], traj["value"], traj["next_value"], traj["terminated"], traj["done"],
             self.cfg.gamma, self.cfg.lam,
         )
-        advantages = (advantages - torch.mean(advantages)) / (torch.std(advantages, unbiased=False) + 1e-5)
+        count = self.cfg.batch_size  # samples over every rank
+        (adv_sum,) = self._sums(advantages)
+        adv_mean = adv_sum / count
+        (sq_sum,) = self._sums(torch.square(advantages - adv_mean))
+        advantages = (advantages - adv_mean) / (torch.sqrt(sq_sum / count) + 1e-5)
         recurrent = self.cfg.recurrent
         batch = Batch(
             obs=traj["obs"], actions=traj["action"], log_probs=traj["log_prob"],
@@ -359,13 +401,14 @@ class PPO:
             ts = dataclasses.replace(ts, actor_carry=a_carry, critic_carry=c_carry)
 
         done_f = traj["done"].to(torch.float32)
-        n_done = torch.sum(done_f)
         # the recurrent trajectory keeps no episode returns: its episode
         # reward is every reward over the episodes finished (as in JAX)
-        ep_sum = torch.sum(traj["reward"] if recurrent else traj["ep_return"])
+        reward_sum, len_sum, n_done, ep_sum = self._sums(
+            traj["reward"], done_f * traj["ep_steps"], done_f, traj["reward"] if recurrent else traj["ep_return"]
+        )
         roll_metrics = dict(
-            mean_reward=torch.mean(traj["reward"]),
-            mean_episode_length=torch.sum(done_f * traj["ep_steps"]) / torch.clamp_min(n_done, 1.0),
+            mean_reward=reward_sum / count,
+            mean_episode_length=len_sum / torch.clamp_min(n_done, 1.0),
             episodes_finished=n_done,
             episode_reward=ep_sum / torch.clamp_min(n_done, 1.0),
         )
@@ -373,7 +416,9 @@ class PPO:
 
     # ---------------------------------------------------------------- update
 
-    def _loss_fn(self, actor, critic, norm, mb):
+    def _loss_fn(self, actor, critic, norm, mb, count: int | None = None):
+        """The loss over a minibatch of flat samples; ``count``: the global
+        minibatch's size (default: these samples)."""
         obs, actions, old_log_probs, advantages, returns = mb
         mean, log_std = self._policy(actor, norm, obs)
         values = critic(norm.normalize(obs))
@@ -381,7 +426,7 @@ class PPO:
             mir_mean, _ = self._policy(actor, norm, obs @ self.obs_mirror.T)
         else:
             mir_mean = None
-        return self._loss_terms(obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean)
+        return self._loss_terms(obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean, count)
 
     def _replay_sequences(self, actor, critic, nobs, done_prev, a_c, c_c):
         """Run the nets over a (T, b, O) window of normalized observations
@@ -400,10 +445,11 @@ class PPO:
                 values.append(value)
         return torch.stack(means), torch.stack(log_stds), torch.stack(values) if critic is not None else None
 
-    def _loss_recurrent(self, actor, critic, norm, mb):
+    def _loss_recurrent(self, actor, critic, norm, mb, count: int | None = None):
         """The loss over a minibatch of env sequences (T, b): the nets
         replayed from the rollout's first carries. The mirror replay starts
-        from zero carries, as in the JAX trainer."""
+        from zero carries, as in the JAX trainer. ``count``: the global
+        minibatch's samples (default: these, T x b)."""
         obs, actions, old_log_probs, advantages, returns, done, a_c0, c_c0 = mb
         done_prev = torch.cat([torch.zeros_like(done[:1]), done[:-1]], dim=0)
         means, log_stds, values = self._replay_sequences(actor, critic, norm.normalize(obs), done_prev, a_c0, c_c0)
@@ -415,26 +461,34 @@ class PPO:
             mir_means = None
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
         return self._loss_terms(flat(obs), flat(actions), flat(old_log_probs), flat(advantages), flat(returns),
-                                flat(means), flat(log_stds), flat(values), None if mir_means is None else flat(mir_means))
+                                flat(means), flat(log_stds), flat(values), None if mir_means is None else flat(mir_means),
+                                count)
 
-    def _loss_terms(self, obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean):
+    def _loss_terms(self, obs, actions, old_log_probs, advantages, returns, mean, log_std, values, mir_mean, count=None):
         """Clipped surrogate, value MSE, entropy, mirror and imitation terms
         over flat samples, from the nets' outputs (mir_mean: the policy on
-        mirrored observations, None without a mirror)."""
+        mirrored observations, None without a mirror). Each mean is the sum
+        over these samples divided by ``count`` samples (default: these),
+        so that the ranks' terms add up to the global minibatch's."""
         cfg = self.cfg
+        count = obs.shape[0] if count is None else count
+
+        def mean_of(x):
+            return torch.sum(x) / (count * math.prod(x.shape[1:]))
+
         log_probs = networks.gaussian_logp(mean, log_std, actions)
         ratio = torch.exp(log_probs - old_log_probs)
 
         surr1 = ratio * advantages
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip, 1.0 + cfg.clip) * advantages
-        actor_loss = -torch.mean(torch.minimum(surr1, surr2))
-        clip_fraction = torch.mean((torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32))
+        actor_loss = -mean_of(torch.minimum(surr1, surr2))
+        clip_fraction = mean_of((torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32))
 
-        critic_loss = torch.mean(torch.square(returns - values))
-        entropy = torch.mean(networks.gaussian_entropy(log_std))
+        critic_loss = mean_of(torch.square(returns - values))
+        entropy = mean_of(networks.gaussian_entropy(log_std))
 
         if mir_mean is not None:
-            mirror_loss = torch.mean(torch.square(mean - mir_mean @ self.act_mirror.T))
+            mirror_loss = mean_of(torch.square(mean - mir_mean @ self.act_mirror.T))
         else:
             mirror_loss = torch.zeros((), device=obs.device)
 
@@ -443,12 +497,13 @@ class PPO:
             query = self.imitation_projector(obs)
             with torch.no_grad():
                 expert_mean = self.expert(query.expert_obs)
-            imit_loss = imitation_loss(query, mean, expert_mean)
+            (mask_total,) = self._sums(query.sample_mask.to(torch.float32))
+            imit_loss = imitation_loss(query, mean, expert_mean, mask_total)
         else:
             imit_loss = torch.zeros((), device=obs.device)
 
         log_ratio = log_probs - old_log_probs
-        approx_kl = torch.mean((ratio - 1.0) - log_ratio)
+        approx_kl = mean_of((ratio - 1.0) - log_ratio)
 
         total = (actor_loss + cfg.mirror_coeff * mirror_loss + cfg.imitate_coeff * imit_loss
                  - cfg.entropy_coeff * entropy + critic_loss)
@@ -468,7 +523,7 @@ class PPO:
         n = cfg.batch_size
         mb_size = min(cfg.minibatch_size, n)
         n_mb = max(n // mb_size, 1)
-        flat = [x.reshape((n,) + tuple(x.shape[2:])) for x in
+        flat = [x.reshape((-1,) + tuple(x.shape[2:])) for x in
                 (batch.obs, batch.actions, batch.log_probs, batch.advantages, batch.returns)]
         sums: dict[str, torch.Tensor] = {}
         for epoch in range(cfg.epochs):
@@ -479,18 +534,25 @@ class PPO:
                 perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n, self.device)
                 index_sets = list(perm[: n_mb * mb_size].reshape(n_mb, mb_size))
             for idx in index_sets:
-                self._minibatch_step(ts, self._loss_fn, tuple(x[idx] for x in flat), sums)
-        count = cfg.epochs * n_mb
-        return ts, {k: v / count for k, v in sums.items()}
+                self._minibatch_step(ts, self._loss_fn, tuple(x[self._local(idx, samples=True)] for x in flat), sums, mb_size)
+        return ts, self._mean_metrics(sums, cfg.epochs * n_mb)
 
-    def _minibatch_step(self, ts: TrainState, loss_fn, mb, sums: dict) -> None:
-        """One gradient step of both nets on ``mb``; adds the loss terms to ``sums``."""
+    def _mean_metrics(self, sums: dict, count: int) -> dict:
+        """The loss terms summed over minibatches (and ranks), per minibatch."""
+        return {k: v / count for k, v in zip(sums, self._sums(*sums.values()))}
+
+    def _minibatch_step(self, ts: TrainState, loss_fn, mb, sums: dict, count: int | None = None) -> None:
+        """One gradient step of both nets on ``mb`` (of a global minibatch of
+        ``count`` samples); adds the loss terms to ``sums``. Over ranks the
+        gradients are summed before the step, so every rank steps alike."""
         a_params = list(ts.actor.parameters())
         c_params = list(ts.critic.parameters())
-        total, aux = loss_fn(ts.actor, ts.critic, ts.norm, mb)
-        grads = torch.autograd.grad(total, a_params + c_params)
-        ts.actor_opt.step(list(grads[: len(a_params)]))
-        ts.critic_opt.step(list(grads[len(a_params) :]))
+        total, aux = loss_fn(ts.actor, ts.critic, ts.norm, mb, count)
+        grads = list(torch.autograd.grad(total, a_params + c_params))
+        if self.shard is not None:
+            grads = self.shard.all_reduce(grads)
+        ts.actor_opt.step(grads[: len(a_params)])
+        ts.critic_opt.step(grads[len(a_params) :])
         for k, v in aux.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
 
@@ -513,11 +575,11 @@ class PPO:
                 perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n_envs, self.device)
                 index_sets = list(perm[: n_mb * seq_mb].reshape(n_mb, seq_mb))
             for idx in index_sets:
-                take = lambda x: x[idx]
+                idx = self._local(idx)
+                take = lambda x: x[idx]  # noqa: E731
                 mb = (*(x[:, idx] for x in seqs), tree_map(take, batch.actor_carry0), tree_map(take, batch.critic_carry0))
-                self._minibatch_step(ts, self._loss_recurrent, mb, sums)
-        count = cfg.epochs * n_mb
-        return ts, {k: v / count for k, v in sums.items()}
+                self._minibatch_step(ts, self._loss_recurrent, mb, sums, seq_mb * cfg.rollout_len)
+        return ts, self._mean_metrics(sums, cfg.epochs * n_mb)
 
     def _optimize_iteration(self, ts: TrainState, batch: Batch, perms: list | None = None):
         ts, metrics = self._update(ts, batch, perms)
@@ -533,7 +595,8 @@ class PPO:
         """Obs-norm warmup: rollout + Welford update, no learning. A
         recurrent warmup leaves the TrainState's carries as they were."""
         env_state, traj = self._rollout(ts, deterministic=False)
-        return dataclasses.replace(ts, env_state=env_state, norm=update_norm(ts.norm, traj["obs"]))
+        all_reduce = None if self.shard is None else self.shard.all_reduce
+        return dataclasses.replace(ts, env_state=env_state, norm=update_norm(ts.norm, traj["obs"], all_reduce))
 
     @torch.no_grad()
     def _eval_rollout(self, ts: TrainState, draws: Draws) -> dict:
@@ -600,9 +663,14 @@ class PPO:
         (or 2 to the last) on the CPU and the card and writes a Chrome trace
         there (trace.json). Returns (final TrainState, per-iteration
         metrics); ``on_iteration(itr, metrics)`` sees each iteration's.
-        Times are taken after a device synchronization."""
+        Times are taken after a device synchronization. On a data-parallel
+        rank other than 0, nothing is printed, evaluated, logged, saved or
+        traced: it waits at a barrier while rank 0 evaluates and saves."""
         cfg = self.cfg
         n_itr = cfg.n_itr if n_itr is None else n_itr
+        verbose = verbose and self.lead
+        if not self.lead:
+            logger = checkpointer = profile_dir = None
         ts = self.init_state() if ts is None else ts
         for _ in range(self.warmup_iterations()):
             ts = self._warmup_iteration(ts)
@@ -640,21 +708,24 @@ class PPO:
                     logger.log_timing(itr, fps=fps, sample_time=t1 - t0, optimize_time=t2 - t1,
                                       total_elapsed=time.time() - start)
                 if evaluate and (itr % cfg.eval_freq == 0 or itr == n_itr - 1):
-                    with torch.profiler.record_function("ppo.eval"):
-                        t3 = time.time()
-                        evals = {k: float(v) for k, v in self._eval_rollout(ts, self.eval_draws(itr)).items()}
-                        metrics.update(evals, eval_time=time.time() - t3)
-                    if verbose:
-                        print(f"  eval @ {itr}: reward {evals['eval_mean_reward']:.2f} "
-                              f"len {evals['eval_mean_episode_length']:.1f}", flush=True)
-                    if logger is not None:
-                        logger.log_eval(itr, evals)
-                    if checkpointer is not None:
-                        t4 = time.time()
-                        is_best = evals["eval_mean_reward"] > best_eval
-                        best_eval = max(best_eval, evals["eval_mean_reward"])
-                        checkpointer.save(itr, ts, self.draws, metrics=evals, is_best=is_best)
-                        metrics["checkpoint_time"] = time.time() - t4
+                    if self.lead:
+                        with torch.profiler.record_function("ppo.eval"):
+                            t3 = time.time()
+                            evals = {k: float(v) for k, v in self._eval_rollout(ts, self.eval_draws(itr)).items()}
+                            metrics.update(evals, eval_time=time.time() - t3)
+                        if verbose:
+                            print(f"  eval @ {itr}: reward {evals['eval_mean_reward']:.2f} "
+                                  f"len {evals['eval_mean_episode_length']:.1f}", flush=True)
+                        if logger is not None:
+                            logger.log_eval(itr, evals)
+                        if checkpointer is not None:
+                            t4 = time.time()
+                            is_best = evals["eval_mean_reward"] > best_eval
+                            best_eval = max(best_eval, evals["eval_mean_reward"])
+                            checkpointer.save(itr, ts, self.draws, metrics=evals, is_best=is_best)
+                            metrics["checkpoint_time"] = time.time() - t4
+                    if self.shard is not None:
+                        self.shard.barrier()
             history.append(metrics)
             if on_iteration is not None:
                 on_iteration(itr, metrics)

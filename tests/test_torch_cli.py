@@ -4,8 +4,8 @@ each evaluation, best.pt, the log), --continued resumes at the saved
 iteration, eval replays a run into an .npz, --imitate distils an h1_walk
 expert with a finite imitation loss; the same for a recurrent cartpole run,
 whose policy is no imitation expert; cartpole runs its observation-norm
-warmup; --device cuda without a card and the flags that are not ported
-raise."""
+warmup; --device cuda without a card raises; --n-devices, --view and an
+--out of .mp4 / .gif (refused until the port had them) as they run now."""
 
 import json
 import math
@@ -112,17 +112,64 @@ def test_cuda_without_a_card_raises(tmp_path):
     assert not any(tmp_path.iterdir())  # nothing ran
 
 
-@pytest.mark.parametrize("argv", [
-    ["train", "--env", "h1", "--n-devices", "2"],
-    ["eval", "--path", "x", "--view"],
-    ["eval", "--path", "x", "--out", "x.mp4"],
-    ["eval", "--path", "x", "--out", "x.gif"],
-], ids=["n-devices", "view", "mp4", "gif"])
-def test_flags_not_ported_raise(argv, tmp_path):
-    fn = cli.train if argv[0] == "train" else cli.evaluate
-    rest = argv[1:] + (["--logdir", str(tmp_path)] if argv[0] == "train" else [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(rest + ["--device", "cpu"])
+@pytest.fixture(scope="module")
+def step_run(tmp_path_factory):
+    """A small jvrc_step run on the CPU, for the eval flags below."""
+    logdir = tmp_path_factory.mktemp("step")
+    cli.train(["--env", "jvrc_step", "--logdir", str(logdir), *SMALL[:2], "--n-itr", "1", *SMALL[4:]])
+    return logdir
+
+
+@pytest.mark.parametrize("flag", ["n-devices", "view", "mp4", "gif"])
+def test_flags_not_ported_raise(flag, step_run, tmp_path, monkeypatch):
+    """The four flags the CLI refused before the port had them, as they
+    run now: --n-devices 2 trains on two gloo ranks (rank 0 alone writes
+    the run: one checkpoint for one iteration), --view hands the run to
+    view_policy (its window faked), an .mp4 without an ffmpeg writer raises
+    a clear error before anything runs, a .gif holds episode 0's frames."""
+    if flag == "n-devices":
+        out = cli.train(["--env", "jvrc_walk", "--logdir", str(tmp_path), "--n-devices", "2", *SMALL[:2], "--n-itr", "1",
+                         *SMALL[4:]])
+        run = out["run_dir"]
+        assert sorted(p.name for p in (run / "checkpoints").iterdir()) == ["0.pt", "metrics_0.json"]
+        assert out["iteration"] == 1 and len(out["history"]) == 1 and math.isfinite(out["history"][0]["eval_mean_reward"])
+        assert torch.load(run / "checkpoints" / "0.pt", weights_only=True)["iteration"] == 1
+        assert json.loads((run / "experiment.json").read_text())["n_devices"] == 2
+        with pytest.raises(ValueError, match="split evenly"):
+            cli.train(["--env", "jvrc_walk", "--logdir", str(tmp_path), "--n-devices", "3", *SMALL])
+    elif flag == "view":
+        from learninghumanoidwalking_tpu_torch.rl import viewer
+
+        seen = {}
+
+        def fake_view(path, episodes, max_steps, realtime, device):
+            seen.update(path=path, episodes=episodes, max_steps=max_steps, realtime=realtime, device=str(device))
+            return "loop"
+
+        monkeypatch.setattr(viewer, "view_policy", fake_view)
+        out = cli.evaluate(["--path", str(step_run), "--view", "--no-realtime", "--episodes", "2", "--max-steps", "5",
+                            "--device", "cpu"])
+        assert out == {"loop": "loop"}
+        assert seen == dict(path=step_run, episodes=2, max_steps=5, realtime=False, device="cpu")
+    elif flag == "mp4":
+        import importlib.util
+
+        find_spec = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec",
+                            lambda name, *a: None if name in ("imageio_ffmpeg", "av") else find_spec(name, *a))
+        with pytest.raises(RuntimeError, match="no .mp4 writer"):
+            cli.evaluate(["--path", str(step_run), "--out", str(tmp_path / "x.mp4"), "--device", "cpu"])
+        assert not (tmp_path / "x.mp4").exists()
+    else:
+        import imageio
+
+        out = cli.evaluate(["--path", str(step_run), "--episodes", "2", "--max-steps", "2", "--out", str(tmp_path / "x.gif"),
+                            "--device", "cpu"])
+        frames = imageio.mimread(tmp_path / "x.gif")
+        assert 1 <= len(frames) <= out["lengths"][0] and len(out["markers"]) == out["lengths"][0]
+        assert frames[0].shape[:2] in ((400, 800), (480, 640))  # the stick figure, or the GL renderer's default
+        assert out["renderer"] in ("stick figure", "gl")
+        assert {"targets", "sequence", "terrain_pos", "floor_z"} <= set(out["markers"][0])
 
 
 def test_main_usage():
