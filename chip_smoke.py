@@ -117,7 +117,22 @@ the phase's own seconds:
    iterations, then 2): no kernel launch, the norm's count as the warmup
    leaves it, finite losses; one cartpole control step of engine_step_b
    (4 substeps) on the card held to a float64 run of the same function on
-   the CPU (1e-5). Then h1 with --profile-dir for 3
+   the CPU (1e-5). The envs' engine path (reset/step: one engine_step_b
+   at a time, plain PyTorch, no kernel): jvrc_walk, jvrc_step,
+   jvrc_walk_rough, jvrc_walk with the motor config and h1, a reset and 4
+   control steps of seeded actions at B=64 on the card held to the same
+   draws and actions on the CPU in float32 by part 1 of bench.py's gate
+   (qpos 5e-3, GRF p95 4%; a done flag may differ only in an env whose
+   qpos the gate holds), no kernel launched; engine_step_b's ms a substep
+   at B=64 and 4096 on jvrc_walk, its kernel count and device time from
+   a profiler trace (host-bound); the contact-behaviour tool
+   (contact_behavior.py --seconds 1) on jvrc_walk, h1 and jvrc_step through
+   its command line, on the card and on the CPU at once (six processes of
+   one thread each, started before the engine path runs), the card's root
+   z within 2e-3 m of the CPU's, its total GRF within 2% and its GRF
+   against the weight within 0.03 of the CPU's (part 2's settled limits;
+   at 1 s the robots are still settling, so the CPU's own readings are the
+   reference, not mg). Then h1 with --profile-dir for 3
    iterations: the 5 CUDA kernels with the most device time in the trace
    and the device's idle share over the traced iteration. Then eval's task
    markers: eval --path --out .gif (2 episodes of at most 20 steps) on the
@@ -360,6 +375,213 @@ def markers_viewer_data_parallel(dev, logroot, runs, cli_path, jvrc_env, num_env
         f"{share:.4f} of the NCCL run's optimize (each all-reduce synchronized) | launches {launches} (expected {want}) | {smi}")
     if not ok:
         raise RuntimeError("the one-rank NCCL iteration left the plain trainer's")
+
+
+# the engine path phase: the envs' reset/step at ENGINE_B envs, ENGINE_STEPS
+# control steps, card against CPU; the contact-behaviour tool for
+# TOOL_SECONDS on TOOL_ENVS, card against CPU
+ENGINE_ENVS = (("jvrc_walk", None), ("jvrc_step", None), ("jvrc_walk_rough", None), ("jvrc_walk", "jvrc_motor.json"),
+               ("h1", None))
+ENGINE_B, ENGINE_STEPS, ENGINE_SEED = 64, 4, 17
+TOOL_ENVS, TOOL_SECONDS = ("jvrc_walk", "h1", "jvrc_step"), 1.0
+# bench.py's two-part gate: part 1 (dynamic) on the engine path's calls,
+# part 2's settled limits on the tool's readings
+GATE_QPOS, GATE_GRF_P95 = 5e-3, 0.04
+GATE_ROOT_Z, GATE_GRF, GATE_VS_WEIGHT = 2e-3, 0.02, 0.03
+
+
+def engine_rollout(name: str, json_name, batch: int, steps: int, device) -> list:
+    """The engine path of one env: ``reset``, then ``steps`` control steps of
+    ``step`` with seeded actions, every draw and action from one seeded CPU
+    generator (HostDraws), so the card and the CPU run the same numbers.
+    Returns, for the reset and each step, the fields the gate reads (on the
+    CPU): qpos, observations, total GRF, active contacts, done."""
+    import os
+
+    import torch
+
+    from learninghumanoidwalking_tpu_torch.envs.humanoid import CONFIG_DIR
+    from learninghumanoidwalking_tpu_torch.envs.registry import make_env
+    from learninghumanoidwalking_tpu_torch.utils.seeding import HostDraws
+
+    env = make_env(name, path_to_json=json_name and os.path.join(CONFIG_DIR, json_name), device=device)
+    gen = torch.Generator()
+    gen.manual_seed(ENGINE_SEED)
+    draws = HostDraws(gen)
+
+    def record(s):
+        force = torch.linalg.vector_norm(s.physics.contact.force, dim=-1) * s.physics.contact.mask
+        return dict(qpos=s.physics.qpos.cpu(), obs=s.obs.cpu(), grf=force.sum(1).cpu(), contacts=s.physics.contact.mask.sum(1).cpu(),
+                    done=s.done.cpu())
+
+    state = env.reset(batch, draws)
+    calls = [record(state)]
+    for _ in range(steps):
+        actions = 0.2 * torch.randn((batch, env.action_size), generator=gen)
+        state = env.step(state, actions.to(device), draws)
+        calls.append(record(state))
+    return calls
+
+
+def parse_tool_output(text: str) -> dict:
+    """The readings contact_behavior prints for one env."""
+    import re
+
+    con = re.search(r"active contacts: (\d+) / (\d+)", text)
+    grf = re.search(r"GRF: left\s+(\S+) N\s+right\s+(\S+) N\s+\(mg = (\S+)\)", text)
+    root = re.search(r"root z: (\S+)\s+done: (True|False)", text)
+    if not (con and grf and root):
+        raise RuntimeError(f"contact_behavior printed no readings:\n{text}")
+    left, right, mg = (float(x) for x in grf.groups())
+    return dict(active_contacts=int(con.group(1)), ncon=int(con.group(2)), grf_left=left, grf_right=right, grf=left + right,
+                mg=mg, vs_weight=(left + right - mg) / mg, root_z=float(root.group(1)), done=root.group(2) == "True")
+
+
+def engine_path(dev, smi: str, results: dict) -> None:
+    """The envs' engine path on the card (phase 4, "engine path"): (a) reset
+    and ENGINE_STEPS control steps at ENGINE_B envs of jvrc_walk, jvrc_step,
+    jvrc_walk_rough, jvrc_walk with the motor config and h1, held to the
+    same draws and actions on the CPU in float32 by part 1 of bench.py's
+    gate, no kernel launched, and the engine step's ms a substep at B=64 and
+    4096; (b) the contact-behaviour tool through its command line on the
+    card and on the CPU, all at once in processes of their own, the card's
+    readings held to the CPU's by part 2's settled limits. Raises on a
+    failed check."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import threading
+    import time
+
+    import torch
+
+    from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
+    from learninghumanoidwalking_tpu_torch.physics import batched
+    from learninghumanoidwalking_tpu_torch.envs.registry import make_env
+    from learninghumanoidwalking_tpu_torch.rl.trace import summarize_trace
+    from learninghumanoidwalking_tpu_torch.utils.seeding import HostDraws
+
+    t_phase = time.time()
+    # (b) first, in the background: each process one env on one device, one
+    # intra-op thread (8 host cores: this process, 3 on the card, 3 on the CPU)
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool_env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    tools, ended = {}, {}
+
+    def wait_for(key, proc, t0):
+        proc.wait()
+        ended[key] = time.time() - t0
+
+    for name in TOOL_ENVS:
+        for device in ("cuda", "cpu"):
+            out = tempfile.TemporaryFile(mode="w+")
+            cmd = [sys.executable, "-m", "learninghumanoidwalking_tpu_torch.contact_behavior", "--seconds", str(TOOL_SECONDS),
+                   "--envs", name, "--device", device]
+            proc = subprocess.Popen(cmd, cwd=root, env=tool_env, stdout=out, stderr=subprocess.STDOUT)
+            waiter = threading.Thread(target=wait_for, args=((name, device), proc, time.time()), daemon=True)
+            waiter.start()
+            tools[(name, device)] = (proc, out, waiter)
+    try:
+        # (a) the engine path, card against CPU
+        ok_all = True
+        for name, json_name in ENGINE_ENVS:
+            title = name + (f" ({json_name})" if json_name else "")
+            for c in sk.counters.values():
+                c.reset()
+            t0 = time.time()
+            card = engine_rollout(name, json_name, ENGINE_B, ENGINE_STEPS, dev)
+            torch.cuda.synchronize()
+            t_card = time.time() - t0
+            launches = {k: c.launches for k, c in sk.counters.items() if c.launches}
+            t0 = time.time()
+            cpu = engine_rollout(name, json_name, ENGINE_B, ENGINE_STEPS, "cpu")
+            t_cpu = time.time() - t0
+            rows = []
+            for i, (k, p) in enumerate(zip(card, cpu)):
+                q_err = (k["qpos"] - p["qpos"]).abs().amax(1)
+                grf_rel = (k["grf"] - p["grf"]).abs() / (p["grf"].abs() + 50.0)
+                flips = (k["done"] != p["done"]).nonzero().flatten().tolist()
+                rows.append(dict(call="reset" if i == 0 else f"step {i}", qpos_max=float(q_err.max()),
+                                 grf_p95=float(torch.quantile(grf_rel, 0.95)), obs_max=float((k["obs"] - p["obs"]).abs().max()),
+                                 done_card=int(k["done"].sum()), done_cpu=int(p["done"].sum()), done_flips=flips,
+                                 # a flipped done flag is admitted where the gate holds that env's state equal
+                                 flips_outside_gate=[e for e in flips if float(q_err[e]) >= GATE_QPOS],
+                                 contacts=float(k["contacts"].mean()), finite=bool(torch.isfinite(k["obs"]).all())))
+            ok = (not launches and all(r["qpos_max"] < GATE_QPOS and r["grf_p95"] < GATE_GRF_P95 and not r["flips_outside_gate"]
+                                       and r["finite"] for r in rows))
+            results[f"phase 4 engine path {title}"] = dict(rows=rows, launches=launches, card_s=t_card, cpu_s=t_cpu)
+            worst = lambda key: max(r[key] for r in rows)
+            log(f"phase 4 engine path {title} (B={ENGINE_B}, reset + {ENGINE_STEPS} steps, card vs CPU float32): "
+                f"{'PASS' if ok else 'FAIL'} | qpos max {worst('qpos_max'):.3e} (gate {GATE_QPOS}), GRF p95 {worst('grf_p95'):.4f} "
+                f"(gate {GATE_GRF_P95}), obs max {worst('obs_max'):.3e} | done card/CPU {rows[-1]['done_card']}/{rows[-1]['done_cpu']}, "
+                f"flipped {sum(len(r['done_flips']) for r in rows)} (outside the gate {sum(len(r['flips_outside_gate']) for r in rows)}) "
+                f"| mean active contacts {rows[-1]['contacts']:.2f} | kernel launches {launches or 0} | card {t_card:.1f} s, "
+                f"CPU {t_cpu:.1f} s")
+            ok_all = ok_all and ok
+
+        # (b) the tool's readings, card against CPU
+        readings = {}
+        for (name, device), (proc, out, waiter) in tools.items():
+            waiter.join(timeout=600)
+            out.seek(0)
+            text = out.read()
+            if proc.returncode != 0:
+                raise RuntimeError(f"contact_behavior --envs {name} --device {device} exited {proc.returncode}:\n{text}")
+            readings[(name, device)] = dict(parse_tool_output(text), seconds=ended[(name, device)])
+        # the engine step's ms a substep on jvrc_walk (plain PyTorch, host-bound),
+        # once the tools' processes have left the host
+        env = make_env("jvrc_walk", device=dev)
+        timing = {}
+        for batch in (ENGINE_B, 4096):
+            gen = torch.Generator()
+            gen.manual_seed(ENGINE_SEED)
+            state = env.reset(batch, HostDraws(gen))
+            zeros = torch.zeros((batch, env.model.nu), device=dev)
+            physics = state.physics
+            for _ in range(2):
+                physics = batched.engine_step_b(env.model, state.dyn, physics, zeros, env.sim_dt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                physics = batched.engine_step_b(env.model, state.dyn, physics, zeros, env.sim_dt)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 10 * 1e3
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+                physics = batched.engine_step_b(env.model, state.dyn, physics, zeros, env.sim_dt)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+                trace = summarize_trace(os.path.join(tmp, "trace.json"), top=10**6)
+            kernels = sum(n for _, _, n in trace["top_kernels"])
+            timing[batch] = dict(ms=ms, kernels=kernels, device_ms=trace["device_ms"], idle_share=1.0 - trace["device_ms"] / ms)
+        results["phase 4 engine path substep"] = timing
+        log(f"phase 4 engine path, engine_step_b on jvrc_walk ({smi}): " + " | ".join(
+            f"B={b}: {t['ms']:.2f} ms a substep, {t['kernels']} kernels of {t['device_ms']:.2f} ms device time a substep "
+            f"(device idle {t['idle_share']:.3f}: host-bound, plain PyTorch)" for b, t in timing.items()))
+
+        for name in TOOL_ENVS:
+            k, p = readings[(name, "cuda")], readings[(name, "cpu")]
+            checks = dict(root_z=abs(k["root_z"] - p["root_z"]), grf=abs(k["grf"] - p["grf"]) / abs(p["grf"]),
+                          vs_weight=abs(k["vs_weight"] - p["vs_weight"]))
+            ok = checks["root_z"] <= GATE_ROOT_Z and checks["grf"] <= GATE_GRF and checks["vs_weight"] <= GATE_VS_WEIGHT
+            results[f"phase 4 contact_behavior {name}"] = dict(card=k, cpu=p, checks=checks)
+            show = lambda r: (f"contacts {r['active_contacts']}/{r['ncon']}, GRF left {r['grf_left']:.2f} right {r['grf_right']:.2f} N "
+                              f"(mg {r['mg']:.1f}, vs weight {r['vs_weight']:+.4f}), root z {r['root_z']:.4f}, done {r['done']}, "
+                              f"{r['seconds']:.1f} s")
+            log(f"phase 4 contact_behavior --seconds {TOOL_SECONDS} --envs {name}: {'PASS' if ok else 'FAIL'} | card: {show(k)} | "
+                f"CPU: {show(p)} | root z diff {checks['root_z']:.2e} (gate {GATE_ROOT_Z}), GRF {checks['grf']:.4f} (gate {GATE_GRF}), "
+                f"vs weight {checks['vs_weight']:.4f} (gate {GATE_VS_WEIGHT})")
+            ok_all = ok_all and ok
+    finally:
+        for proc, out, waiter in tools.values():
+            if proc.poll() is None:
+                proc.kill()
+            waiter.join()
+            out.close()
+    log(f"phase 4 engine path: {'PASS' if ok_all else 'FAIL'} in {time.time() - t_phase:.1f} s")
+    if not ok_all:
+        raise RuntimeError("the engine path or the contact-behaviour tool on the card left the CPU's")
 
 
 def main() -> int:
@@ -1706,6 +1928,10 @@ def main() -> int:
         f"{'PASS' if ok_cart else 'FAIL'} | worst error over max(1, largest magnitude) {json.dumps(cart_err)} (limit 1e-5)")
     if not ok_cart:
         raise RuntimeError("cartpole's engine_step_b on the card left float64")
+    save_results()
+
+    # ---- phase 4: the envs' engine path and the contact-behaviour tool (no kernel)
+    engine_path(dev, smi, results)
     save_results()
 
     # ---- phase 4: the profiler hook on h1 ------------------------------------

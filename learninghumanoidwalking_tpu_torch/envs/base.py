@@ -1,9 +1,13 @@
 """Env state and base class (counterpart of learninghumanoidwalking_tpu/envs/base.py).
 
 The JAX env is a pure function of one env's state, vmapped over the batch.
-Here the batch axis is written out: every EnvState field is batch-leading,
-and ``reset_batch``/``step_batch`` are the entry points. Randomness comes
-from a ``Draws`` source (utils/seeding.py) instead of a per-env PRNG key.
+Here the batch axis is written out: every EnvState field is batch-leading.
+The envs have two pairs of entry points, as the JAX package has:
+``reset``/``step``, the engine path (the counterparts of ``jax.vmap`` over
+the JAX env's single-env ``reset``/``step``: one engine step at a time,
+physics/batched.py ``engine_step_b``), and ``reset_batch``/``step_batch``,
+the training path (the control-step kernel). Randomness comes from a
+``Draws`` source (utils/seeding.py) instead of a per-env PRNG key.
 """
 
 from __future__ import annotations
@@ -42,6 +46,12 @@ class Env:
     mirrored_obs = None
     mirrored_acts = None
     clock_inds = None
+
+    def reset(self, num_envs: int, draws, iteration=None) -> EnvState:
+        raise NotImplementedError
+
+    def step(self, states: EnvState, actions: torch.Tensor, draws) -> EnvState:
+        raise NotImplementedError
 
     def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
         raise NotImplementedError

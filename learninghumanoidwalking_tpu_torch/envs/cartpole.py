@@ -3,7 +3,8 @@
   * sim_dt 5 ms, control_dt 20 ms (frame_skip 4), each substep one engine
     step (physics/batched.py ``engine_step_b``, the JAX ``engine.step``;
     plain PyTorch on the card too: no control-step kernel carries cartpole,
-    in the JAX package either)
+    in the JAX package either). So ``reset``/``step`` are the env, and the
+    training path's ``reset_batch``/``step_batch`` call them
   * obs (5,): [cart_pos, cos(angle), sin(angle), cart_vel, pole_vel]
   * action (1,): target cart position, clipped to +-0.8 before PD
   * PD kp=100 kd=10 at joint level, applied directly as ctrl (not divided
@@ -51,7 +52,7 @@ class CartpoleEnv(Env):
         x, theta = physics.qpos[:, 0], physics.qpos[:, 1]
         return torch.stack([x, torch.cos(theta), torch.sin(theta), physics.qvel[:, 0], physics.qvel[:, 1]], dim=-1)
 
-    def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
+    def reset(self, num_envs: int, draws, iteration=None) -> EnvState:
         """Fresh states: the pole at U(-pi, pi), then U(-0.1, 0.1) on both
         coordinates and both velocities."""
         n, dev = num_envs, self.device
@@ -79,7 +80,7 @@ class CartpoleEnv(Env):
             iteration=torch.as_tensor(iteration, dtype=torch.int32, device=dev).expand(n).clone(),
         )
 
-    def step_batch(self, states: EnvState, actions: torch.Tensor, draws=None) -> EnvState:
+    def step(self, states: EnvState, actions: torch.Tensor, draws=None) -> EnvState:
         """One control step: ``frame_skip`` PD substeps of ``engine_step_b``
         with the env's gains (``dyn.kp``/``dyn.kd``, which cartpole never
         randomizes). Cartpole draws nothing here."""
@@ -102,6 +103,12 @@ class CartpoleEnv(Env):
             done=torch.abs(obs[:, 0]) > 0.99,
             steps=states.steps + 1,
         )
+
+    def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
+        return self.reset(num_envs, draws, iteration)
+
+    def step_batch(self, states: EnvState, actions: torch.Tensor, draws=None) -> EnvState:
+        return self.step(states, actions, draws)
 
     @staticmethod
     def _reward(obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:

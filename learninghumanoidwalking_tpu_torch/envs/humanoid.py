@@ -2,12 +2,21 @@
 learninghumanoidwalking_tpu/envs/humanoid.py).
 
 The JAX env vmaps per-env pure functions around a batch-in-lanes physics
-call; here every step is written over the batch. Physics runs through
+call; here every step is written over the batch. The training path
+(``reset_batch``/``step_batch``) runs its physics through
 ops/substep_kernel.py::pd_substeps_kernel: the CUDA kernels K1 (flat floor),
 K2 (terrain boxes), K3 (heightfield), K4 (flat floor with the learned
 motor model), K5 or K6 (terrain boxes or heightfield with the motor model)
 for CUDA tensors, their plain PyTorch version for CPU tensors.
 No batch size routes the card back to the plain version.
+
+The engine path (``reset``/``step``, the JAX env's single-env ``reset``/
+``step`` over a batch) runs one engine step at a time: physics/batched.py
+``engine_step_b`` with the projected Jacobi contact solve, through
+robots/pd.py ``pd_substeps`` or robots/motor.py ``pd_substeps_motor``, plain
+PyTorch on the env's device. The JAX engine path reaches no Pallas kernel,
+and this one calls no kernel. Both paths share everything around the
+physics (``_reset_pre``, ``_reset_post``, ``_pre_step``, ``_post_step``).
 
 Ported: action smoothing and nominal-pose offsets, the PD substep loop,
 the learned motor-dynamics hook (``motor_dynamics``), observation history
@@ -29,10 +38,11 @@ import torch
 
 from learninghumanoidwalking_tpu_torch.envs.base import Env, EnvState
 from learninghumanoidwalking_tpu_torch.ops.substep_kernel import pd_substeps_kernel
-from learninghumanoidwalking_tpu_torch.physics import engine, interface
+from learninghumanoidwalking_tpu_torch.physics import batched, engine, interface
 from learninghumanoidwalking_tpu_torch.physics import rangefinder as rangefinder_mod
 from learninghumanoidwalking_tpu_torch.physics.model import DynParams, default_dyn_params, tree_map
 from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
+from learninghumanoidwalking_tpu_torch.robots import pd
 from learninghumanoidwalking_tpu_torch.utils import maths
 from learninghumanoidwalking_tpu_torch.utils.config import load_json
 
@@ -259,6 +269,16 @@ class HumanoidEnv(Env):
             motor=motor_mod.init_motor_state(n, m.nu, dev) if self.motor_enabled else None,
         )
 
+    def reset(self, num_envs: int, draws, iteration=None) -> EnvState:
+        """The engine path's reset: initial pose and task draws, 3 zero-ctrl
+        ``engine_step_b`` substeps on the envs' terrain, observations."""
+        physics, dyn, task = self._reset_pre(draws, num_envs, iteration)
+        zeros = torch.zeros((num_envs, self.model.nu), device=self.device)
+        terrain = self._terrain(task)
+        for _ in range(3):
+            physics = batched.engine_step_b(self.model, dyn, physics, zeros, self.sim_dt, terrain)
+        return self._reset_post(physics, dyn, task, iteration, draws)
+
     def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
         """Fresh states for ``num_envs`` envs: initial pose and task draws, 3
         zero-torque settle substeps at R=1 (one kernel launch), observations."""
@@ -274,6 +294,22 @@ class HumanoidEnv(Env):
         """Action smoothing + nominal-pose offsets."""
         targets = self.action_smoothing * actions + (1.0 - self.action_smoothing) * states.prev_prediction
         return targets + self.neutral_pose
+
+    def step(self, states: EnvState, actions: torch.Tensor, draws) -> EnvState:
+        """The engine path's control step: ``frame_skip`` PD substeps of
+        ``engine_step_b`` (with the motor hook where enabled), then task,
+        reward, termination and observations."""
+        full_target = self._pre_step(states, actions)
+        terrain = self._terrain(states.task)
+        if self.motor_enabled:
+            physics, new_motor = motor_mod.pd_substeps_motor(
+                self.model, states.dyn, states.physics, states.motor, self.motor_params,
+                full_target, self.frame_skip, self.sim_dt, terrain,
+            )
+            states = dataclasses.replace(states, motor=new_motor)
+        else:
+            physics = pd.pd_substeps(self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt, terrain)
+        return self._post_step(states, physics, actions, full_target, draws)
 
     def step_batch(self, states: EnvState, actions: torch.Tensor, draws) -> EnvState:
         """One control step of every env: frame_skip substeps in one kernel

@@ -11,6 +11,8 @@ every weight), so one batched product serves all joints.
 This is the plain version of kernel K4's motor hook
 (ops/csrc/control_step_lanes.cu, the ``LHW_MOTOR`` build): physics/batched.py
 calls ``motor_substep_torque_b`` on the PD torque of every substep.
+``pd_substeps_motor`` is the hook in the engine path's PD loop (the humanoid
+envs' ``step``): the same hook, one engine step a substep.
 Parameters come from ``init_motor_params`` (an explicit torch.Generator:
 JAX's threefry stream cannot be reproduced) or from an ``.npz``; the
 reference ships no trained nets.
@@ -92,6 +94,35 @@ def motor_substep_torque_b(
     ctau_hist = push(ctau_hist, cmd_tau)
     act_tau = torch.where(warm[:, None], cmd_tau, motor_forward_b(params, qdot_hist, ctau_hist))
     return act_tau, qdot_hist, ctau_hist, count + 1
+
+
+def pd_substeps_motor(
+    model,
+    dyn,
+    physics,
+    motor_state: MotorState,
+    motor_params: dict,
+    target: torch.Tensor,  # (B, nu) joint-space position targets
+    frame_skip: int,
+    sim_dt: float,
+    terrain=None,
+):
+    """robots/pd.py ``pd_substeps`` with the hook in the loop (JAX
+    robots/motor.py ``pd_substeps_motor``): each substep the PD torque minus
+    the back-EMF term, then the hook on it and on the joint velocities of
+    the state before the step, then the applied torque through the gear
+    into one ``engine_step_b``. Returns (PhysicsState, MotorState)."""
+    from learninghumanoidwalking_tpu_torch.physics import batched  # physics/batched.py imports this module
+
+    act_q, act_d = list(model.actuator_qpos), list(model.actuator_dof)
+    qdot_hist, ctau_hist, count = motor_state.qdot_hist, motor_state.ctau_hist, motor_state.count
+    for _ in range(frame_skip):
+        q = physics.qpos[:, act_q]
+        v = physics.qvel[:, act_d]
+        tau = dyn.kp * (target - q) - dyn.kd * v - dyn.bemf_gain * v
+        tau, qdot_hist, ctau_hist, count = motor_substep_torque_b(motor_params, qdot_hist, ctau_hist, count, v, tau)
+        physics = batched.engine_step_b(model, dyn, physics, tau / model.actuator_gear, sim_dt, terrain)
+    return physics, MotorState(qdot_hist=qdot_hist, ctau_hist=ctau_hist, count=count)
 
 
 def load_motor_params(path: str, nu: int, device="cpu") -> dict:

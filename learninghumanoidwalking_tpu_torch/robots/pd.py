@@ -4,10 +4,10 @@
 Per control step, ``frame_skip`` substeps of the engine step
 (physics/batched.py ``engine_step_b``), each applying the joint-level PD
 torque toward the target pose, minus the back-EMF damping, divided by the
-gear ratios into actuator controls. The humanoid envs run the same loop
-fused in the control-step kernel (ops/substep_kernel.py); this is its
-readable form on the engine step, the loop the JAX package's single-env
-humanoid step and its MuJoCo golden comparisons run.
+gear ratios into actuator controls. The humanoid envs' engine path
+(``HumanoidEnv.step``) runs it, as the JAX package's single-env humanoid
+step does; their training path runs the same loop fused in the
+control-step kernel (ops/substep_kernel.py).
 """
 
 from __future__ import annotations

@@ -40,6 +40,28 @@ class Draws:
         return torch.randperm(n, generator=self.gen, device=device)
 
 
+class HostDraws(Draws):
+    """Draws from a generator on the CPU, moved to the device asked for: a
+    seed gives the same numbers on the card as on the CPU (a CUDA
+    generator's stream is another), as a JAX key does on any backend.
+    Checks of the card against the CPU draw so."""
+
+    def uniform(self, name, shape, lo, hi, device):
+        return super().uniform(name, shape, lo, hi, "cpu").to(device)
+
+    def randint(self, name, shape, lo, hi, device):
+        return super().randint(name, shape, lo, hi, "cpu").to(device)
+
+    def normal(self, name, shape, device):
+        return super().normal(name, shape, "cpu").to(device)
+
+    def choice(self, name, shape, values, p, device):
+        return super().choice(name, shape, values, p, "cpu").to(device)
+
+    def permutation(self, name, n, device):
+        return super().permutation(name, n, "cpu").to(device)
+
+
 class InjectedDraws(Draws):
     """Draws fixed in advance, looked up by name (shape-checked)."""
 

@@ -11,12 +11,14 @@ Tolerances:
 * MjcfWalkEnv: reset_batch and step_batch at B=1 and B=4 against the JAX
   env's reset_batch and step_batch, with the JAX task draws injected:
   observations, rewards and weighted reward components 1e-3 absolute,
-  done flags exactly (as tests/test_torch_env.py holds jvrc_walk). The
-  JAX package's own test calls its single-env reset and step, which run
-  its single-env engine step, another contact solve than its batched
-  engine (their reset observations differ by up to 3.6e-3 in joint
-  velocities on this robot); the port has only the batch API, so B=1 of
-  the batch API is the like-for-like case.
+  done flags exactly (as tests/test_torch_env.py holds jvrc_walk); and
+  the engine path, reset and step at B=1, against the JAX env's
+  single-env reset and step, the JAX package's own test's case
+  (tests/test_mjcf_env.py), observations 1e-3 absolute. The two paths
+  run two contact solves (the batched engine's and the single-env engine
+  step's projected Jacobi sweeps), whose reset observations differ by up
+  to 3.6e-3 in joint velocities on this robot (ROADMAP reference
+  behaviour 15), so each path is held to its JAX counterpart separately.
 """
 
 import dataclasses
@@ -261,6 +263,34 @@ def test_mjcf_env_matches_jax(tmp_path, batch):
         np.testing.assert_allclose(ts.reward_components.numpy(), np.asarray(js.reward_components), rtol=0, atol=1e-3)
         np.testing.assert_allclose(ts.reward.numpy(), np.asarray(js.reward), rtol=0, atol=1e-3)
         np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
+
+
+def test_mjcf_env_engine_path_matches_jax(tmp_path):
+    """MjcfWalkEnv.reset and step at B=1 against the JAX env's single-env
+    reset and step (the JAX package's own test, tests/test_mjcf_env.py),
+    reset and two steps with the JAX draws injected."""
+    xml, robot_json, robot_yaml = _robot_files(tmp_path)
+    jenv = JaxMjcfWalkEnv(xml, robot_yaml)
+    tenv = make_env(f"mjcf:{xml}", robot_json, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # B=1: intra-op threads only contend with the suite's other workers
+    try:
+        key = jax.random.PRNGKey(0)
+        js = jax.jit(jenv.reset)(key)
+        ts = tenv.reset(1, InjectedDraws(reset_draws(key[None], jenv.period)))
+        np.testing.assert_allclose(ts.obs.numpy()[0], np.asarray(js.obs), rtol=0, atol=1e-3)
+        step = jax.jit(jenv.step)
+        rng = np.random.default_rng(0)
+        for _ in range(2):
+            action = (0.2 * rng.standard_normal(12)).astype(np.float32)
+            draws = InjectedDraws(step_draws(js.key[None]))
+            js = step(js, jnp.asarray(action))
+            ts = tenv.step(ts, torch.as_tensor(action[None]), draws)
+            np.testing.assert_allclose(ts.obs.numpy()[0], np.asarray(js.obs), rtol=0, atol=1e-3)
+            np.testing.assert_allclose(ts.reward_components.numpy()[0], np.asarray(js.reward_components), rtol=0, atol=1e-3)
+            assert bool(ts.done[0]) == bool(js.done)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_mjcf_env_through_the_command_line(tmp_path):
