@@ -119,19 +119,19 @@ the phase's own seconds:
    (4 substeps) on the card held to a float64 run of the same function on
    the CPU (1e-5). The envs' engine path (reset/step: one engine_step_b
    at a time, plain PyTorch, no kernel): jvrc_walk, jvrc_step,
-   jvrc_walk_rough, jvrc_walk with the motor config and h1, a reset and 4
+   jvrc_walk_rough, jvrc_walk with the motor config and h1, a reset and 2
    control steps of seeded actions at B=64 on the card held to the same
    draws and actions on the CPU in float32 by part 1 of bench.py's gate
    (qpos 5e-3, GRF p95 4%; a done flag may differ only in an env whose
    qpos the gate holds), no kernel launched; engine_step_b's ms a substep
    at B=64 and 4096 on jvrc_walk, its kernel count and device time from
    a profiler trace (host-bound); the contact-behaviour tool
-   (contact_behavior.py --seconds 1) on jvrc_walk, h1 and jvrc_step through
+   (contact_behavior.py --seconds 0.5) on jvrc_walk, h1 and jvrc_step through
    its command line, on the card and on the CPU at once (six processes of
    one thread each, started before the engine path runs), the card's root
    z within 2e-3 m of the CPU's, its total GRF within 2% and its GRF
    against the weight within 0.03 of the CPU's (part 2's settled limits;
-   at 1 s the robots are still settling, so the CPU's own readings are the
+   at 0.5 s the robots are still settling, so the CPU's own readings are the
    reference, not mg). Then h1 with --profile-dir for 3
    iterations: the 5 CUDA kernels with the most device time in the trace
    and the device's idle share over the traced iteration. Then eval's task
@@ -150,7 +150,14 @@ the phase's own seconds:
    (parallel/mesh.py) against the plain trainer from the same seed:
    parameters, Adam moments, norm and metrics bit for bit, else 1e-6
    relative; the NCCL all-reduce's share of the optimize time (one GPU:
-   more ranks are checked by the CPU tests only);
+   more ranks are checked by the CPU tests only). The tools: the walk-mode
+   probe (probe_walk_modes.py --steps 4) on the h1_walk run, three modes as
+   one batch on the engine path, no kernel launched, its printed numbers
+   within one unit of their last digit of the same probe on the CPU (a
+   process started first); the training A/B harness (training_ab.py run)
+   on cartpole twice (3 iterations at its defaults, no kernel) and on
+   jvrc_walk (2 iterations of 1024 envs, rollout 16: every launch in K1,
+   counted exactly), and its compare on the two cartpole files;
 5. the kernel table (K1-K6).
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -379,11 +386,12 @@ def markers_viewer_data_parallel(dev, logroot, runs, cli_path, jvrc_env, num_env
 
 # the engine path phase: the envs' reset/step at ENGINE_B envs, ENGINE_STEPS
 # control steps, card against CPU; the contact-behaviour tool for
-# TOOL_SECONDS on TOOL_ENVS, card against CPU
+# TOOL_SECONDS on TOOL_ENVS, card against CPU (kept short: the whole script
+# must end well inside its time limit)
 ENGINE_ENVS = (("jvrc_walk", None), ("jvrc_step", None), ("jvrc_walk_rough", None), ("jvrc_walk", "jvrc_motor.json"),
                ("h1", None))
-ENGINE_B, ENGINE_STEPS, ENGINE_SEED = 64, 4, 17
-TOOL_ENVS, TOOL_SECONDS = ("jvrc_walk", "h1", "jvrc_step"), 1.0
+ENGINE_B, ENGINE_STEPS, ENGINE_SEED = 64, 2, 17
+TOOL_ENVS, TOOL_SECONDS = ("jvrc_walk", "h1", "jvrc_step"), 0.5
 # bench.py's two-part gate: part 1 (dynamic) on the engine path's calls,
 # part 2's settled limits on the tool's readings
 GATE_QPOS, GATE_GRF_P95 = 5e-3, 0.04
@@ -582,6 +590,126 @@ def engine_path(dev, smi: str, results: dict) -> None:
     log(f"phase 4 engine path: {'PASS' if ok_all else 'FAIL'} in {time.time() - t_phase:.1f} s")
     if not ok_all:
         raise RuntimeError("the engine path or the contact-behaviour tool on the card left the CPU's")
+
+
+# the tools phase: the walk-mode probe for PROBE_STEPS steps (card and CPU),
+# the A/B harness on cartpole (twice, AB_CART_ITR iterations at its defaults)
+# and on jvrc_walk (AB_WALK_ITR iterations of AB_WALK_ENVS envs, rollout
+# AB_WALK_ROLLOUT)
+PROBE_STEPS = 4
+AB_CART_ITR = 3
+AB_WALK_ITR, AB_WALK_ENVS, AB_WALK_ROLLOUT = 2, 1024, 16
+PROBE_NUMBER = r"[+-]?\d+\.\d+"
+
+
+def probe_lines_agree(mine: list, ref: list) -> bool:
+    """The probe's lines equal but for their numbers, each number within one
+    unit of its last printed digit."""
+    import re
+
+    if len(mine) != len(ref):
+        return False
+    for a, b in zip(mine, ref):
+        if re.sub(PROBE_NUMBER, "#", a) != re.sub(PROBE_NUMBER, "#", b):
+            return False
+        for x, y in zip(re.findall(PROBE_NUMBER, a), re.findall(PROBE_NUMBER, b)):
+            if abs(float(x) - float(y)) > 10.0 ** -len(y.split(".")[1]) * 1.001:
+                return False
+    return True
+
+
+def tools(dev, smi: str, walk_run: str, logroot: str, path_launches: dict, results: dict) -> None:
+    """The port's user tools on the card (phase 4, "tools"): the walk-mode
+    probe on the h1_walk run through its command line for PROBE_STEPS steps
+    on the card, held to the same probe on the CPU (a process of its own,
+    started first) to one unit of every printed digit, no kernel launched;
+    the training A/B harness's ``run`` on cartpole twice (no kernel) and on
+    jvrc_walk (every launch in K1, counted exactly), its ``compare`` on the
+    two cartpole files. Raises on a failed check."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    from learninghumanoidwalking_tpu_torch import probe_walk_modes, training_ab
+    from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cpu_out = tempfile.TemporaryFile(mode="w+")
+    cpu_probe = subprocess.Popen(
+        [sys.executable, "-m", "learninghumanoidwalking_tpu_torch.probe_walk_modes", "--path", walk_run, "--steps",
+         str(PROBE_STEPS), "--device", "cpu"],
+        cwd=root, env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        stdout=cpu_out, stderr=subprocess.STDOUT)
+
+    def counted(fn):
+        """fn() with every kernel's count at 0 before; (result, launches, seconds)."""
+        for c in sk.counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in sk.counters.items()}
+        for k, v in launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        return out, {k: v for k, v in launches.items() if v}, time.time() - t0
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            card, probe_launches, probe_s = counted(lambda: probe_walk_modes.main(
+                ["--path", walk_run, "--steps", str(PROBE_STEPS)]))
+        ab = {}
+        for tag, argv in (("cartpole A", ["--n-itr", str(AB_CART_ITR)]), ("cartpole B", ["--n-itr", str(AB_CART_ITR)]),
+                          ("jvrc_walk", ["--env", "jvrc_walk", "--n-itr", str(AB_WALK_ITR), "--num-envs", str(AB_WALK_ENVS),
+                                         "--rollout-len", str(AB_WALK_ROLLOUT)])):
+            out_path = os.path.join(logroot, f"ab_{tag.replace(' ', '_')}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                result, launches, seconds = counted(lambda: training_ab.main(["run", *argv, "--out", out_path]))
+            want = {"K1": 1 + AB_WALK_ITR * (AB_WALK_ROLLOUT + 1)} if tag == "jvrc_walk" else {}
+            ok = (launches == want and set(result) == {"env", "config", "total_time", "avg_fps", "final_reward", "records"}
+                  and all(np.isfinite(r["mean_reward"]) and r["fps"] > 0 for r in result["records"]))
+            ab[tag] = dict(path=out_path, launches=launches, expected=want, seconds=seconds, avg_fps=result["avg_fps"],
+                           final_reward=result["final_reward"], records=result["records"], ok=ok)
+            log(f"phase 4 tools: training_ab run {' '.join(argv)} ({tag}): {'PASS' if ok else 'FAIL'} | launches {launches} "
+                f"(expected {want}) | avg fps {result['avg_fps']:,.0f}, final reward {result['final_reward']:.3f}, iteration s "
+                + ", ".join(f"{r['iter_time']:.3f}" for r in result["records"]) + f" | {seconds:.1f} s | {smi}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            training_ab.main(["compare", ab["cartpole A"]["path"], ab["cartpole B"]["path"]])
+        table = buf.getvalue().splitlines()
+        log("phase 4 tools: training_ab compare (cartpole A/A): " + " | ".join(table))
+
+        cpu_probe.wait(timeout=600)
+        cpu_out.seek(0)
+        text = cpu_out.read()
+        if cpu_probe.returncode != 0:
+            raise RuntimeError(f"probe_walk_modes --device cpu exited {cpu_probe.returncode}:\n{text}")
+        cpu = [line for line in text.splitlines() if line.split()[:1] in (["FORWARD"], ["INPLACE"], ["STANDING"])
+               or ": terminated at step" in line]
+        ok_probe = not probe_launches and len(card) >= 3 and probe_lines_agree(card, cpu)
+        log(f"phase 4 tools: probe_walk_modes --steps {PROBE_STEPS} on the h1_walk run (B=3, engine path): "
+            f"{'PASS' if ok_probe else 'FAIL'} | card {probe_s:.1f} s, kernel launches {probe_launches or 0} | card: "
+            + " || ".join(card) + " | CPU: " + " || ".join(cpu))
+    finally:
+        if cpu_probe.poll() is None:
+            cpu_probe.kill()
+            cpu_probe.wait()
+        cpu_out.close()
+    ok_all = ok_probe and all(r["ok"] for r in ab.values()) and len(table) == 4
+    seconds = time.time() - t_phase
+    results["phase 4 tools"] = dict(probe=dict(card=card, cpu=cpu, launches=probe_launches, seconds=probe_s), harness=ab,
+                                    compare=table, seconds=seconds)
+    log(f"phase 4 tools: {'PASS' if ok_all else 'FAIL'} in {seconds:.1f} s")
+    if not ok_all:
+        raise RuntimeError("a tool failed its checks on the card")
 
 
 def main() -> int:
@@ -1952,6 +2080,10 @@ def main() -> int:
     runs = {name: str(find_latest_run(os.path.join(logroot, d)))
             for name, d in (("jvrc_step", "jvrc_step_motor"), ("jvrc_walk_rough", "jvrc_walk_rough_motor"), ("h1_walk", "h1_walk"))}
     markers_viewer_data_parallel(dev, logroot, runs, cli_path, jvrc_env, num_envs, rollout, smi, path_launches, results)
+    save_results()
+
+    # ---- phase 4: the walk-mode probe and the training A/B harness ----------
+    tools(dev, smi, runs["h1_walk"], logroot, path_launches, results)
     save_results()
     shutil.rmtree(logroot)
 

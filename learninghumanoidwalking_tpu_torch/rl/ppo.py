@@ -100,7 +100,9 @@ class Adam:
     which may overflow to inf while every entry is finite: the clip then
     gives zero gradients, and the moments and ``count`` still advance);
     ``notfinite_count`` counts consecutive non-finite steps, and once it
-    exceeds ``MAX_CONSECUTIVE_ERRORS`` the step is applied all the same."""
+    exceeds ``MAX_CONSECUTIVE_ERRORS`` the step is applied all the same.
+    ``nonfinite_total`` counts every non-finite step since this Adam was
+    built (a diagnostic of long runs; checkpoints do not keep it)."""
 
     def __init__(self, params: list, lr: float, eps: float, max_grad_norm: float, b1=0.9, b2=0.999):
         self.params = params
@@ -109,11 +111,13 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = torch.zeros((), device=params[0].device)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=params[0].device)
+        self.nonfinite_total = torch.zeros((), dtype=torch.int32, device=params[0].device)
 
     @torch.no_grad()
     def step(self, grads: list) -> None:
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)
+        self.nonfinite_total = self.nonfinite_total + (~finite).to(torch.int32)
         apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         trigger = g_norm < self.max_norm
@@ -591,6 +595,14 @@ class PPO:
         metrics["mean_noise_std"] = torch.mean(torch.exp(log_std))
         return ts, metrics
 
+    def _train_iter(self, ts: TrainState):
+        """One PPO iteration, sampling then optimization, with the two
+        parts' metrics merged (the JAX trainer's ``_train_iter``); the
+        metrics stay on the device."""
+        ts, batch, roll = self._sample_iteration(ts)
+        ts, aux = self._optimize_iteration(ts, batch)
+        return ts, {**roll, **aux}
+
     def _warmup_iteration(self, ts: TrainState) -> TrainState:
         """Obs-norm warmup: rollout + Welford update, no learning. A
         recurrent warmup leaves the TrainState's carries as they were."""
@@ -694,7 +706,8 @@ class PPO:
                 del batch
                 fps = cfg.batch_size / max(t2 - t0, 1e-9)
                 metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
-                           "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9), "fps": fps}
+                           "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9), "fps": fps,
+                           "nonfinite_steps": int(ts.actor_opt.nonfinite_total + ts.critic_opt.nonfinite_total)}
                 if verbose:
                     print(
                         f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "

@@ -92,15 +92,19 @@ def build_train_parser() -> argparse.ArgumentParser:
     return p
 
 
-def train(argv) -> dict:
+def train(argv, on_iteration=None) -> dict:
     """Parse ``argv`` and train. Returns the run directory, the final
     TrainState, the per-iteration metrics and, with --continued, the run
     resumed and the iteration it resumed at. With --n-devices above 1 the
     ranks run in processes of their own and the TrainState stays there
-    (``ts`` None): the metrics and the iteration are rank 0's."""
+    (``ts`` None): the metrics and the iteration are rank 0's.
+    ``on_iteration(itr, metrics)`` sees each iteration's metrics (PPO.train's
+    hook; one rank only, so not with --n-devices above 1)."""
     args = build_train_parser().parse_args(argv)
     device = resolve_device(args.device)
     n_ranks = args.n_devices or 1
+    if n_ranks > 1 and on_iteration is not None:
+        raise ValueError("on_iteration needs one rank (no --n-devices)")
     if n_ranks > 1:
         from learninghumanoidwalking_tpu_torch.parallel.mesh import check_layout
 
@@ -115,7 +119,7 @@ def train(argv) -> dict:
     run_dir.mkdir(parents=True, exist_ok=True)
     print(f"logging to {run_dir}", flush=True)
     if n_ranks == 1:
-        return _train_run(args, device, run_dir)
+        return _train_run(args, device, run_dir, on_iteration=on_iteration)
     from learninghumanoidwalking_tpu_torch.parallel.mesh import launch
 
     print(f"training on {n_ranks} ranks, {args.num_envs // n_ranks} envs each", flush=True)
@@ -128,7 +132,7 @@ def _train_rank(shard, args, run_dir: Path) -> dict:
     return {**out, "ts": None, "iteration": out["ts"].iteration}
 
 
-def _train_run(args, device, run_dir: Path, shard=None) -> dict:
+def _train_run(args, device, run_dir: Path, shard=None, on_iteration=None) -> dict:
     """Build the env and the trainer (a rank of a data-parallel run with
     ``shard``) and train; only rank 0 writes the run directory."""
     from learninghumanoidwalking_tpu_torch.envs.registry import make_env
@@ -179,7 +183,7 @@ def _train_run(args, device, run_dir: Path, shard=None) -> dict:
 
     try:
         ts, history = ppo.train(args.n_itr, ts=init_ts, logger=logger, checkpointer=checkpointer,
-                                profile_dir=args.profile_dir)
+                                profile_dir=args.profile_dir, on_iteration=on_iteration)
     finally:
         if logger is not None:
             logger.close()
