@@ -43,11 +43,9 @@
 // rule's qacc limit failed in 2 of 4096 jvrc_step envs on a CPU build):
 // K, its factor and the sweeps' vectors are float64 (see K below), and
 // the basis's linear part is taken about the foot body rather than the
-// world origin (basis_at). In the flat build G and LG's factorization are
-// float64 too (a 5-dof leg leaves G near singular; see the refresh); the
-// terrain, motor and terrain + motor builds, which run JVRC's 6-dof legs
-// only, keep them float32 (the wrapper refuses a shorter leg in the terrain
-// + motor build). Factors keep their diagonal's reciprocals, so
+// world origin (basis_at). In every build G and LG's factorization are
+// float64 too (a 5-dof leg leaves G near singular; see the refresh), and
+// LG is kept in float32. Factors keep their diagonal's reciprocals, so
 // the solves multiply instead of divide (float64 division is slow).
 //
 // Factorization reuse (the flat build at R > 1: physics/batched.py's
@@ -313,8 +311,8 @@
 #define E_WORK (E_DINV + 2 * 3 * MAX_C)   // even: the union holds doubles
 // scratch union: dynamics (INER, MC, GF, GSUB), then the composite inertias
 // (ICOMP over MC..GSUB, INER still read), then M (MW over INER), then the
-// basis solves (Y, GW over MW), then the contact system (CHAT; KW and LK in
-// float64, at even offsets)
+// basis solves (Y over MW; G and its factor in float64 at KW, LK, LKRD),
+// then the contact system (CHAT; KW and LK in float64, at even offsets)
 #define CHAT_LD (MAX_K + 1)  // odd row stride: a lane's rows fall in distinct banks
 #define W_INER 0
 #define W_MC (W_INER + NINER * MAX_B)
@@ -323,8 +321,6 @@
 #define W_ICOMP (W_GF)
 #define W_MW 0
 #define W_Y 0
-#define W_GW (W_Y + MAX_K * MAX_V)
-#define W_GRD (W_GW + TRI(MAX_K))      // LG's reciprocal diagonal (unused)
 #define W_CHAT 0
 #define W_KW ((W_CHAT + 3 * MAX_C * CHAT_LD + 1) & ~1)
 #define W_LK (W_KW + 2 * TRI(MAX_K))
@@ -371,11 +367,8 @@ static_assert(W_MTAU % 2 == 0 && W_MFLAG >= W_MTAU + MAX_U, "motor torques past 
 #endif
 static_assert(TRI(MAX_V) <= W_ICOMP, "MW overlaps ICOMP");
 static_assert(W_ICOMP + NINER * MAX_B <= W_SIZE && W_GSUB + 6 * MAX_B <= W_SIZE, "dynamics scratch past the union");
-static_assert(W_GRD + MAX_K <= W_SIZE, "basis scratch past the union");
 static_assert(E_DINV % 2 == 0 && E_WORK % 2 == 0 && W_KW % 2 == 0 && W_LK % 2 == 0, "float64 arrays at odd offsets");
-#if !LHW_TERRAIN && !LHW_MOTOR
 static_assert(W_KW >= W_Y + MAX_K * MAX_V, "G's float64 factorization overlaps Y");
-#endif
 
 #if LHW_TERRAIN && LHW_MOTOR
 #define LHW_KERNEL control_step_terrain_motor_kernel
@@ -1072,6 +1065,9 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
   float* const work = env + E_WORK;
 #if LHW_TERRAIN
   const float* const terr = env + SM_FIXED;
+  // terrain refreshes every substep: the lagged basis is the current one
+  float* const sref = s;
+  float* const oref = xpos;
 #else
   float* const sref = env + E_SREF;
   float* const oref = env + E_OREF;
@@ -1482,53 +1478,12 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
     float* const tmpv = env + E_TMPV;
     group_cho_solve(lm, lrd, nv, qfrc, tmpv, qaccs, lane);
 
-#if LHW_TERRAIN
-    // ---- contact basis: Y = L^-1 B (forward substitutions), the basis
-    // dots with qvel and qacc_smooth, the Gram G = Y^T Y and LG ----
-    float* const y = work + W_Y;
-#pragma unroll 1
-    for (int kk = lane; kk < nk; kk += GRP) {
-      float* yk = y + kk * MAX_V;
-#pragma unroll 1
-      for (int d = 0; d < nv; ++d) yk[d] = basis_at(si, s, xpos, kk, d);
-#pragma unroll 1
-      for (int j = 0; j < nv; ++j) {
-        const float yj = yk[j] * lrd[j];
-        yk[j] = yj;
-#pragma unroll 1
-        for (int i = j + 1; i < nv; ++i) yk[i] -= lm[TRI(i) + j] * yj;
-      }
-    }
-#pragma unroll 1
-    for (int t = lane; t < 2 * nk; t += GRP) {
-      const int kk = t < nk ? t : t - nk;
-      const float* x = t < nk ? v : qaccs;
-      float acc = 0.f;
-#pragma unroll 1
-      for (int d = 0; d < nv; ++d) acc += basis_at(si, s, xpos, kk, d) * x[d];
-      u[(t < nk ? 0 : MAX_K) + kk] = acc;
-    }
-    group_sync();
-    float* const gw = work + W_GW;
-#pragma unroll 1
-    for (int p = lane; p < TRI(nk); p += GRP) {
-      int r, c;
-      tri_rc(p, r, c);
-      const float* ya = y + c * MAX_V;
-      const float* yb = y + r * MAX_V;
-      float acc = 0.f;
-#pragma unroll 1
-      for (int d = 0; d < nv; ++d) acc += ya[d] * yb[d];
-      gram[p] = acc;
-      gw[p] = (r == c) ? acc + 1e-8f : acc;  // G is SPD (independent basis rows through M^-1)
-    }
-    group_sync();
-    group_cholesky(gw, lg, work + W_GRD, nk, lane);
-#else
-    // ---- contact basis, at a refresh: the lagged basis (S and the foot
-    // origins of this substep), Y = L^-1 B (forward substitutions), the Gram
-    // G = Y^T Y and LG; every substep: the basis dots with qvel and
-    // qacc_smooth through the lagged basis ----
+    // ---- contact basis, at a refresh (every substep on terrain): the
+    // lagged basis (S and the foot origins of this substep; on terrain the
+    // current ones), Y = L^-1 B (forward substitutions), the Gram G = Y^T Y
+    // and LG; every substep: the basis dots with qvel and qacc_smooth
+    // through the lagged basis ----
+#if !LHW_TERRAIN
     if (refresh) {
       for (int r = lane; r < 6 * nv; r += GRP) sref[r] = s[r];
       for (int r = lane; r < nk / 2; r += GRP) {
@@ -1536,6 +1491,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         oref[o] = xpos[o];
       }
       group_sync();
+#endif
       float* const y = work + W_Y;
 #pragma unroll 1
       for (int kk = lane; kk < nk; kk += GRP) {
@@ -1551,23 +1507,6 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         }
       }
       group_sync();
-#if LHW_MOTOR
-      float* const gw = work + W_GW;
-#pragma unroll 1
-      for (int p = lane; p < TRI(nk); p += GRP) {
-        int r, c;
-        tri_rc(p, r, c);
-        const float* ya = y + c * MAX_V;
-        const float* yb = y + r * MAX_V;
-        float acc = 0.f;
-#pragma unroll 1
-        for (int d = 0; d < nv; ++d) acc += ya[d] * yb[d];
-        gram[p] = acc;
-        gw[p] = (r == c) ? acc + 1e-8f : acc;  // G is SPD (independent basis rows through M^-1)
-      }
-      group_sync();
-      group_cholesky(gw, lg, work + W_GRD, nk, lane);
-#else
       // G and its factor in float64 (in the contact system's K, LK and LK's
       // diagonal, free until the contacts): with 5-dof legs (Unitree H1) a
       // foot's basis rows come close to dependent in some poses: G's least
@@ -1593,8 +1532,9 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
       group_cholesky(gwd, lgd, (double*)(work + W_LKRD), nk, lane);
       for (int p = lane; p < TRI(nk); p += GRP) lg[p] = (float)lgd[p];
       group_sync();
-#endif
+#if !LHW_TERRAIN
     }
+#endif
 #pragma unroll 1
     for (int t = lane; t < 2 * nk; t += GRP) {
       const int kk = t < nk ? t : t - nk;
@@ -1605,7 +1545,6 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
       u[(t < nk ? 0 : MAX_K) + kk] = acc;
     }
     group_sync();
-#endif
 
     // ---- contacts: corner points, distances, normals ----
 #pragma unroll
@@ -1759,11 +1698,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         r_mask[k] = m;
         float e[3][3], prel[3];
         slot_frame(si, cn, c, e);
-#if LHW_TERRAIN
-        corner_offset(si, cw, xpos, c, prel);
-#else
         corner_offset(si, cw, oref, c, prel);
-#endif
         const float pen = pmin(dist, 0.f);
         const float imp = impmin + impdiff * pmin(pmax(-pen / width, 0.f), 1.f);
         const float rreg = (1.f - imp) / pmax(imp, 1e-6f);
@@ -1934,11 +1869,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         const int foot = si[I_SLOTFOOT + c];
         float e[3][3], prel[3];
         slot_frame(si, cn, c, e);
-#if LHW_TERRAIN
-        corner_offset(si, cw, xpos, c, prel);
-#else
         corner_offset(si, cw, oref, c, prel);
-#endif
 #pragma unroll
         for (int f = 0; f < 3; ++f) {
           float cf[6];
@@ -1961,11 +1892,7 @@ extern "C" __global__ void __launch_bounds__(LHW_TPB, 2) LHW_KERNEL(
         float f = 0.f;
 #pragma unroll
         for (int kk = 0; kk < MAX_K; ++kk)
-#if LHW_TERRAIN
-          if (kk < nk) f += basis_at(si, s, xpos, kk, d) * wb[kk];
-#else
           if (kk < nk) f += basis_at(si, sref, oref, kk, d) * wb[kk];
-#endif
         qcon[d] = f;
       }
     }

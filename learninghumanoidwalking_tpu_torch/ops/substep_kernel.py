@@ -84,14 +84,6 @@ def variant(model: Model, hfield: bool, motor: bool = False) -> str:
     return "K4" if motor else "K1"
 
 
-def leg_dofs(model: Model) -> list[int]:
-    """Per foot body, the joint dofs on its path to the root that are not
-    the floating base's: JVRC-1 6 a leg, Unitree H1 5."""
-    anc = _tables(model)["anc"] > 0.5
-    feet = dict.fromkeys(model.geom_body[g] for g in model.foot_geoms)
-    return [sum(1 for d in range(model.nv) if anc[f, d] and model.jnt_type[model.dof_body[d]] != FREE) for f in feet]
-
-
 def motor_dims(params: dict) -> list[int]:
     """Layer widths of stacked motor-net params: [d_in, hidden..., d_out]."""
     n_layers = int(params["n_layers"])
@@ -104,10 +96,7 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
     params ``motor`` if given): within its caps, on terrain only in a
     terrain build, with a motor model only in a motor build (on the flat
     floor the motor build, K4; on terrain the terrain + motor build, K5 and
-    K6). The terrain + motor build keeps the contact basis's Gram in
-    float32, which holds for 6-dof legs (JVRC-1) only: it refuses a model
-    with a shorter leg (Unitree H1's 5-dof legs leave the Gram near
-    singular; the flat build factorizes it in float64)."""
+    K6)."""
     fb = {model.geom_body[g] for g in model.foot_geoms}
     problems = []
     on_terrain = bool(model.nterrain) or hfield_shape is not None
@@ -132,10 +121,6 @@ def check_model(model: Model, lay: dict, hfield_shape: tuple | None = None, moto
                                 f"{lay['W_MTAU']} floats of scratch")
     if on_terrain and not lay["LHW_TERRAIN"]:
         problems.append("terrain and heightfield models need the terrain build (K2, K3)")
-    legs = leg_dofs(model) if lay["LHW_TERRAIN"] and lay.get("LHW_MOTOR") else []
-    if min(legs, default=6) < 6:
-        problems.append(f"legs of {legs} dofs below the floating base: the terrain + motor build's float32 "
-                        "basis Gram holds for 6-dof legs only")
     if model.nterrain > lay["MAX_T"]:
         problems.append(f"{model.nterrain} terrain boxes exceed the cap {lay['MAX_T']}")
     if hfield_shape is not None and (min(hfield_shape) < 2 or hfield_shape[0] * hfield_shape[1] > lay["MAX_HF"]):

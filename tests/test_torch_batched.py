@@ -36,6 +36,7 @@ from learninghumanoidwalking_tpu_torch.physics import engine as te
 from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.utils import maths
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 B = 4
 KP = np.array([200, 200, 200, 250, 80, 80] * 2, np.float32)

@@ -43,6 +43,7 @@ from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.robots import pd as tpd
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 def cartpole_reset_draws(keys) -> dict:

@@ -16,6 +16,7 @@ import torch
 
 from learninghumanoidwalking_tpu_torch import run_experiment as cli
 from learninghumanoidwalking_tpu_torch.rl.logger import read_log
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 SMALL = ["--device", "cpu", "--n-itr", "2", "--num-envs", "4", "--rollout-len", "1", "--minibatch-size", "4",
          "--epochs", "1", "--max-traj-len", "2"]

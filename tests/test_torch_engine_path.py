@@ -62,21 +62,12 @@ from learninghumanoidwalking_tpu_torch.utils.seeding import Draws, InjectedDraws
 from test_torch_cartpole import cartpole_reset_draws
 from test_torch_env import _actuator_draws, _env_reset_draws, _env_step_draws, reset_draws, step_draws
 from test_torch_h1 import h1_reset_draws, h1_step_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 B = 4
 STEPS = 2
 MOTOR_JSON = f"{th.CONFIG_DIR}/jvrc_motor.json"
 ITERATION = {"jvrc_step": 11000}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's ops at B <= 4 gain nothing from intra-op threads; under the
-    suite's parallel workers such threads only contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _motor_env_pair(tmp_dir):

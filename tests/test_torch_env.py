@@ -35,6 +35,7 @@ from learninghumanoidwalking_tpu_torch.ops.substep_kernel import kernel_reuse
 from learninghumanoidwalking_tpu_torch.tasks import stepping, walking
 from learninghumanoidwalking_tpu_torch.utils.footstep_plans import plan_bank
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 B = 6
 STEPS = 3

@@ -38,6 +38,7 @@ from learninghumanoidwalking_tpu_torch.rl import mirror
 from learninghumanoidwalking_tpu_torch.tasks import standing
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 from test_torch_env import _dyn_draws, _env_step_draws, _init_draws, _obs_noise_draws, _walking_reset_draws, _walking_step_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 JAX_ENVS = {"h1": JaxH1StandEnv, "h1_walk": JaxH1WalkEnv}
 ATOL, SENS = 1e-3, 10.0

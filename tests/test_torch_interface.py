@@ -24,6 +24,7 @@ from learninghumanoidwalking_tpu.physics import model as jmodel
 from learninghumanoidwalking_tpu_torch.envs.registry import make_env
 from learninghumanoidwalking_tpu_torch.physics import interface as titf
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 ACCESSORS = sorted(
     name for name, fn in inspect.getmembers(jitf, inspect.isfunction)

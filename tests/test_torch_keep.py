@@ -32,6 +32,7 @@ from learninghumanoidwalking_tpu_torch.rl import checkpoint, convert, logger, ne
 from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 from test_torch_h1 import h1_reset_draws, h1_step_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 class QueuedDraws(InjectedDraws):

@@ -51,6 +51,7 @@ from learninghumanoidwalking_tpu_torch.utils.config import Configuration
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 from test_torch_env import reset_draws, step_draws
 from test_torch_ops import FLAT
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 # 20 stepping stones as (pos, size, yaw), a heightfield (nrow, ncol, rx, ry, zmax, cx, cy)
 _rng = np.random.default_rng(4)
@@ -272,25 +273,20 @@ def test_mjcf_env_engine_path_matches_jax(tmp_path):
     xml, robot_json, robot_yaml = _robot_files(tmp_path)
     jenv = JaxMjcfWalkEnv(xml, robot_yaml)
     tenv = make_env(f"mjcf:{xml}", robot_json, device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # B=1: intra-op threads only contend with the suite's other workers
-    try:
-        key = jax.random.PRNGKey(0)
-        js = jax.jit(jenv.reset)(key)
-        ts = tenv.reset(1, InjectedDraws(reset_draws(key[None], jenv.period)))
+    key = jax.random.PRNGKey(0)
+    js = jax.jit(jenv.reset)(key)
+    ts = tenv.reset(1, InjectedDraws(reset_draws(key[None], jenv.period)))
+    np.testing.assert_allclose(ts.obs.numpy()[0], np.asarray(js.obs), rtol=0, atol=1e-3)
+    step = jax.jit(jenv.step)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        action = (0.2 * rng.standard_normal(12)).astype(np.float32)
+        draws = InjectedDraws(step_draws(js.key[None]))
+        js = step(js, jnp.asarray(action))
+        ts = tenv.step(ts, torch.as_tensor(action[None]), draws)
         np.testing.assert_allclose(ts.obs.numpy()[0], np.asarray(js.obs), rtol=0, atol=1e-3)
-        step = jax.jit(jenv.step)
-        rng = np.random.default_rng(0)
-        for _ in range(2):
-            action = (0.2 * rng.standard_normal(12)).astype(np.float32)
-            draws = InjectedDraws(step_draws(js.key[None]))
-            js = step(js, jnp.asarray(action))
-            ts = tenv.step(ts, torch.as_tensor(action[None]), draws)
-            np.testing.assert_allclose(ts.obs.numpy()[0], np.asarray(js.obs), rtol=0, atol=1e-3)
-            np.testing.assert_allclose(ts.reward_components.numpy()[0], np.asarray(js.reward_components), rtol=0, atol=1e-3)
-            assert bool(ts.done[0]) == bool(js.done)
-    finally:
-        torch.set_num_threads(threads)
+        np.testing.assert_allclose(ts.reward_components.numpy()[0], np.asarray(js.reward_components), rtol=0, atol=1e-3)
+        assert bool(ts.done[0]) == bool(js.done)
 
 
 def test_mjcf_env_through_the_command_line(tmp_path):

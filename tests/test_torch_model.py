@@ -13,6 +13,7 @@ from learninghumanoidwalking_tpu.physics.spec import lower as jax_lower
 from learninghumanoidwalking_tpu_torch.models.jvrc import jvrc_spec
 from learninghumanoidwalking_tpu_torch.physics import model as tmodel
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 def test_jvrc_model_matches_jax():

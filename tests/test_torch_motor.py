@@ -41,6 +41,7 @@ from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.rl import convert
 from learninghumanoidwalking_tpu_torch.robots import motor
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 H, NU = motor.HIST_LEN, 12
 KP = np.array([200, 200, 200, 250, 80, 80] * 2, np.float32)

@@ -36,6 +36,7 @@ from learninghumanoidwalking_tpu_torch.physics.mjcf import export_mjcf  # noqa: 
 from learninghumanoidwalking_tpu_torch.physics.model import default_dyn_params  # noqa: E402
 from learninghumanoidwalking_tpu_torch.physics.spec import lower  # noqa: E402
 from learninghumanoidwalking_tpu_torch.robots.pd import pd_substeps  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 JVRC_KP = np.array([200, 200, 200, 250, 80, 80] * 2, dtype=np.float64)
 JVRC_KD = np.array([20, 20, 20, 25, 8, 8] * 2, dtype=np.float64)

@@ -30,8 +30,9 @@ times still apply to the source and change only the motor builds.
 
 The terrain + motor build (K5: jvrc_step's boxes, K6: jvrc_walk_rough's
 heightfield, each with the motor hook) is counted as the terrain build's
-work plus the motor term, and checked like the others; it refuses a model
-whose legs have fewer than 6 dofs (its float32 basis Gram).
+work plus the motor term, and checked like the others. Every build forms
+the contact basis's Gram in float64 in one block of the source, so every
+build takes Unitree H1's 5-dof legs.
 """
 
 import dataclasses
@@ -52,6 +53,7 @@ from learninghumanoidwalking_tpu_torch.ops import net_sweep
 from learninghumanoidwalking_tpu_torch.ops import substep_kernel as sk
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.robots.motor import init_motor_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 def _bench():
@@ -180,9 +182,11 @@ def test_check_model_takes_terrain_and_refuses_motor_models():
         sk.check_model(boxes, TERRAIN_MOTOR, motor=_motor(hidden=(128,)))
     with pytest.raises(ValueError, match="12 joints"):
         sk.check_model(flat, TERRAIN_MOTOR, hfield_shape=(16, 16), motor=_motor(nu=10))
-    with pytest.raises(ValueError, match="6-dof legs"):
-        sk.check_model(lower(h1.h1_spec(), device="cpu"), TERRAIN_MOTOR, hfield_shape=(16, 16))
-    assert sk.leg_dofs(flat) == [6, 6] and sk.leg_dofs(lower(h1.h1_spec(), device="cpu")) == [5, 5]
+    # Unitree H1's 5-dof legs: every build forms the basis Gram in float64
+    h1m = lower(h1.h1_spec(), device="cpu")
+    sk.check_model(h1m, TERRAIN, hfield_shape=(16, 16))  # K3
+    sk.check_model(h1m, MOTOR, motor=_motor(nu=10))  # K4
+    sk.check_model(h1m, TERRAIN_MOTOR, hfield_shape=(16, 16), motor=_motor(nu=10))  # K6
     with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
         sk.check_model(flat, MOTOR, motor=_motor(hidden=(32, 32, 32)))
     with pytest.raises(ValueError, match="exceed 3 layers of width 64"):
@@ -401,10 +405,28 @@ def test_layout_dicts_match_the_source(build, tmp_path):
     assert {k: layout.get(k) for k in expected} == expected
 
 
+@pytest.mark.parametrize("build", ["flat", "terrain", "motor", "terrain_motor"])
+def test_every_build_forms_the_gram_in_float64(build, tmp_path):
+    """The lane source forms the contact basis's Gram G = Y^T Y and its
+    factor in one block, and every build compiles that block with G summed
+    and factorized in double (a 5-dof leg leaves G near singular, below a
+    float32 pivot's resolution), LG rounded to float32 after."""
+    source = CSRC / "control_step_lanes.cu"
+    assert source.read_text().count("gram[p] =") == 1
+    text = _preprocess(source, sk.LIBRARIES[build][2], tmp_path)
+    block = re.findall(
+        r"double acc = 0\.0;.*?acc \+= \(double\)ya\[d\] \* yb\[d\];\s*gram\[p\] = \(float\)acc;"
+        r".*?group_cholesky\(gwd, lgd, \(double\*\)\(work \+ ",
+        text, re.S)
+    assert len(block) == 1 and text.count("gram[p] =") == 1
+    assert re.search(r"lg\[p\] = \(float\)lgd\[p\];", text)
+
+
 @pytest.mark.parametrize(
     "build, name",
     [("motor", n) for n in ("unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged")]
-    + [("terrain_motor", n) for n in ("shared_rings", "rings_in_device_memory", "tensor_cores")],
+    + [("terrain_motor", n) for n in ("shared_rings", "rings_in_device_memory", "tensor_cores")]
+    + [(b, "float32_gram") for b in ("terrain", "motor", "terrain_motor")],
 )
 def test_net_variants_apply_to_the_lane_source(build, name, tmp_path):
     """ops/net_sweep.py's rejected designs of the motor nets still apply to
@@ -414,21 +436,24 @@ def test_net_variants_apply_to_the_lane_source(build, name, tmp_path):
     as the kept source's. K5's and K6's other designs (the rings in each
     env's shared region; the rings in device memory with the per-group nets;
     the nets' hidden layers on tensor cores) change the terrain + motor build only, so K1-K4
-    are the same in all four."""
+    are the same in all four. The float32 Gram changes the one Gram block,
+    so every build."""
     variants = net_sweep.variant_sources(CSRC, build)
-    assert set(variants) == {"motor": {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged"},
-                             "terrain_motor": {"shared_rings", "rings_in_device_memory", "tensor_cores"}}[build]
+    assert set(variants) == {"terrain": {"float32_gram"},
+                             "motor": {"unroll5", "unroll20", "unroll25", "units_in_registers", "block_staged", "float32_gram"},
+                             "terrain_motor": {"shared_rings", "rings_in_device_memory", "tensor_cores", "float32_gram"}}[build]
     kept_path = CSRC / "control_step_lanes.cu"
     text = variants[name]
     assert text != kept_path.read_text()
     marker = {"units_in_registers": "float acc[HPL];", "block_staged": "stage_joint_weights(wbuf",
               "shared_rings": "#define E_QDH (E_WORK + W_SIZE)",
               "rings_in_device_memory": "group_motor_net(motor_w, nu, motor_layers, m_dims, n, ring + n * MAX_H",
-              "tensor_cores": "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"}
+              "tensor_cores": "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+              "float32_gram": "group_cholesky(gw, lg, work + W_LK, nk, lane);"}
     assert marker.get(name, f"#pragma unroll {name[6:]}\n") in text
     path = tmp_path / "variant.cu"
     path.write_text(text)
-    changed = ("motor", "terrain_motor") if build == "motor" else ("terrain_motor",)
+    changed = {"motor": ("motor", "terrain_motor"), "terrain_motor": ("terrain_motor",)}[build] if name != "float32_gram" else tuple(sk.LIBRARIES)
     for lib in sk.LIBRARIES:
         defines = sk.LIBRARIES[lib][2]
         same = _preprocess(path, defines, tmp_path) == _preprocess(kept_path, defines, tmp_path)

@@ -35,6 +35,7 @@ from learninghumanoidwalking_tpu_torch.parallel import mesh
 from learninghumanoidwalking_tpu_torch.parallel.dryrun import dryrun_multichip
 from learninghumanoidwalking_tpu_torch.rl import convert, ppo
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws, InjectedDraws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 N_RANKS = 2
 

@@ -25,6 +25,7 @@ from learninghumanoidwalking_tpu.rl import ppo as jppo
 from learninghumanoidwalking_tpu_torch.envs.jvrc_walk import JvrcWalkEnv
 from learninghumanoidwalking_tpu_torch.rl import convert, networks, normalize, ppo
 from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 N_MB = 64  # samples per loss evaluation
 

@@ -21,6 +21,7 @@ from learninghumanoidwalking_tpu_torch.envs.registry import make_env
 from learninghumanoidwalking_tpu_torch.physics import rangefinder as rf
 from learninghumanoidwalking_tpu_torch.physics.engine import Terrain
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 UPRIGHT = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
 PITCHED = np.array([np.cos(0.1), 0.0, np.sin(0.1), 0.0], np.float32)  # 0.2 rad about y

@@ -35,6 +35,7 @@ from learninghumanoidwalking_tpu_torch.envs.registry import make_env
 from learninghumanoidwalking_tpu_torch.rl import convert, distributions, networks, ppo
 from test_torch_cartpole import cartpole_reset_draws
 from test_torch_keep import QueuedDraws, _queue
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 def rel_close(mine, theirs, rel, what="", floor=1e-8):

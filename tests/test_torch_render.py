@@ -44,6 +44,7 @@ from learninghumanoidwalking_tpu_torch.rl import render, render_gl
 from learninghumanoidwalking_tpu_torch.tasks import stepping, walking
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 from test_torch_env import _stepping_reset_draws, _walking_reset_draws, _walking_step_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 N = 8
 

@@ -18,6 +18,7 @@ import torch
 from learninghumanoidwalking_tpu_torch.envs.registry import make_env
 from learninghumanoidwalking_tpu_torch.ops import substep_kernel
 from learninghumanoidwalking_tpu_torch.rl.ppo import PPO, PPOConfig
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 
 def test_two_training_iterations_on_cpu():

@@ -25,6 +25,7 @@ from learninghumanoidwalking_tpu_torch.physics import batched as tb
 from learninghumanoidwalking_tpu_torch.physics import engine as te
 from learninghumanoidwalking_tpu_torch.physics.spec import lower
 from learninghumanoidwalking_tpu_torch.utils import maths
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 TOL = 1e-6
 HF_X0Y0 = (-1.2, -1.875)

@@ -39,20 +39,11 @@ from learninghumanoidwalking_tpu_torch.rl import ppo as tppo
 from learninghumanoidwalking_tpu_torch.rl.checkpoint import Checkpointer
 from learninghumanoidwalking_tpu_torch.utils.seeding import InjectedDraws
 from test_torch_engine_path import _reset_draws, _step_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 AB_ARGS = ["--device", "cpu", "--num-envs", "8", "--rollout-len", "4", "--minibatch-size", "32", "--n-itr", "2"]
 PROBE_STEPS = 2
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's ops here run at B <= 8; under the suite's parallel workers
-    intra-op threads only contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_script(name: str):

@@ -17,6 +17,7 @@ import pytest
 from learninghumanoidwalking_tpu_torch import run_experiment as cli
 from learninghumanoidwalking_tpu_torch.rl import viewer
 from learninghumanoidwalking_tpu_torch.rl.eval import evaluate_policy
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: torch at one intra-op thread)
 
 SMALL = ["--device", "cpu", "--n-itr", "1", "--num-envs", "4", "--rollout-len", "1", "--minibatch-size", "4",
          "--epochs", "1", "--max-traj-len", "2"]
