@@ -43,7 +43,7 @@ from learninghumanoidwalking_tpu_torch.physics import rangefinder as rangefinder
 from learninghumanoidwalking_tpu_torch.physics.model import DynParams, default_dyn_params, tree_map
 from learninghumanoidwalking_tpu_torch.robots import motor as motor_mod
 from learninghumanoidwalking_tpu_torch.robots import pd
-from learninghumanoidwalking_tpu_torch.utils import maths
+from learninghumanoidwalking_tpu_torch.utils import maths, trace
 from learninghumanoidwalking_tpu_torch.utils.config import load_json
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
@@ -282,11 +282,12 @@ class HumanoidEnv(Env):
     def reset_batch(self, num_envs: int, draws, iteration=None) -> EnvState:
         """Fresh states for ``num_envs`` envs: initial pose and task draws, 3
         zero-torque settle substeps at R=1 (one kernel launch), observations."""
-        physics, dyn, task = self._reset_pre(draws, num_envs, iteration)
-        zeros = torch.zeros((num_envs, self.model.nu), device=self.device)
-        terrain = self._terrain(task)
-        physics = pd_substeps_kernel(self.model, dyn, physics, zeros, 3, self.sim_dt, terrain, settle=True)
-        return self._reset_post(physics, dyn, task, iteration, draws)
+        with trace.span("env.reset"):
+            physics, dyn, task = self._reset_pre(draws, num_envs, iteration)
+            zeros = torch.zeros((num_envs, self.model.nu), device=self.device)
+            terrain = self._terrain(task)
+            physics = pd_substeps_kernel(self.model, dyn, physics, zeros, 3, self.sim_dt, terrain, settle=True)
+            return self._reset_post(physics, dyn, task, iteration, draws)
 
     # ------------------------------------------------------------------ step
 
@@ -314,17 +315,18 @@ class HumanoidEnv(Env):
     def step_batch(self, states: EnvState, actions: torch.Tensor, draws) -> EnvState:
         """One control step of every env: frame_skip substeps in one kernel
         launch, then task, reward, termination and observations."""
-        full_target = self._pre_step(states, actions)
-        terrain = self._terrain(states.task)
-        motor = (self.motor_params, states.motor) if self.motor_enabled else None
-        physics = pd_substeps_kernel(
-            self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt, terrain,
-            reuse_interval=self.physics_reuse, motor=motor,
-        )
-        if motor is not None:  # (PhysicsState, MotorState)
-            physics, new_motor = physics
-            states = dataclasses.replace(states, motor=new_motor)
-        return self._post_step(states, physics, actions, full_target, draws)
+        with trace.span("env.step"):
+            full_target = self._pre_step(states, actions)
+            terrain = self._terrain(states.task)
+            motor = (self.motor_params, states.motor) if self.motor_enabled else None
+            physics = pd_substeps_kernel(
+                self.model, states.dyn, states.physics, full_target, self.frame_skip, self.sim_dt, terrain,
+                reuse_interval=self.physics_reuse, motor=motor,
+            )
+            if motor is not None:  # (PhysicsState, MotorState)
+                physics, new_motor = physics
+                states = dataclasses.replace(states, motor=new_motor)
+            return self._post_step(states, physics, actions, full_target, draws)
 
     def _post_step(self, state: EnvState, physics, actions, full_target, draws) -> EnvState:
         task = self._task_step(draws, state.task, physics)

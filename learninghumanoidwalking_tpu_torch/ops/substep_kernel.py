@@ -46,6 +46,7 @@ from learninghumanoidwalking_tpu_torch.physics.engine import Terrain, _tables
 from learninghumanoidwalking_tpu_torch.physics.model import FREE, HINGE, SLIDE, Contact, DynParams, Model, PhysicsState
 from learninghumanoidwalking_tpu_torch.physics.spec import _quat_to_mat_np
 from learninghumanoidwalking_tpu_torch.robots.motor import HIST_LEN, MotorState
+from learninghumanoidwalking_tpu_torch.utils import trace
 
 # build name, sources and preprocessor defines of each library; K2 and K3
 # share "terrain", K5 and K6 "terrain_motor"
@@ -537,71 +538,74 @@ def pd_substeps_kernel(
     (PhysicsState, MotorState)) K4, K5, K6, at the reuse interval of
     kernel_reuse on both paths.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    device = physics.qpos.device
-    hfield_shape = tuple(terrain.hfield.shape[1:]) if terrain is not None and terrain.hfield is not None else None
-    name = variant(model, hfield_shape is not None, motor is not None)
-    boxes = terrain is not None and terrain.pos.shape[1] > 0
-    if (name in ("K2", "K5")) != boxes or (name in ("K1", "K4") and terrain is not None):
-        raise ValueError(f"terrain does not fit the model ({model.nterrain} terrain boxes, heightfield {hfield_shape})")
-    reuse_interval = kernel_reuse(terrain, reuse_interval, motor is not None)
-    if device.type == "cpu":
-        return pd_substeps_batched(
-            model, params, physics, target, frame_skip, sim_dt, terrain, settle=settle, reuse_interval=reuse_interval,
-            motor=motor,
+    CPU tensors run the plain version; CUDA tensors launch the kernel; both
+    in a ``physics.launch`` span (utils/trace.py)."""
+    with trace.span("physics.launch"):
+        device = physics.qpos.device
+        hfield_shape = tuple(terrain.hfield.shape[1:]) if terrain is not None and terrain.hfield is not None else None
+        name = variant(model, hfield_shape is not None, motor is not None)
+        boxes = terrain is not None and terrain.pos.shape[1] > 0
+        if (name in ("K2", "K5")) != boxes or (name in ("K1", "K4") and terrain is not None):
+            raise ValueError(f"terrain does not fit the model ({model.nterrain} terrain boxes, heightfield {hfield_shape})")
+        reuse_interval = kernel_reuse(terrain, reuse_interval, motor is not None)
+        if device.type == "cpu":
+            return pd_substeps_batched(
+                model, params, physics, target, frame_skip, sim_dt, terrain, settle=settle, reuse_interval=reuse_interval,
+                motor=motor,
+            )
+        if device.type != "cuda":
+            raise ValueError(f"pd_substeps_kernel: unsupported device {device}")
+        check_model(model, _library(LIBRARY_OF[name])[1], hfield_shape, None if motor is None else motor[0])
+        batch = physics.qpos.shape[0]
+        inputs = dict(
+            qpos=_trailing(physics.qpos),
+            qvel=_trailing(physics.qvel),
+            target=_trailing(target),
+            kp=_trailing(params.kp),
+            kd=_trailing(params.kd),
+            bemf=_trailing(params.bemf_gain),
+            damping=_trailing(params.dof_damping),
+            frictionloss=_trailing(params.dof_frictionloss),
+            body_mass=_trailing(params.body_mass),
+            body_ipos=_trailing(params.body_ipos),
+            xfrc=_trailing(params.xfrc),
         )
-    if device.type != "cuda":
-        raise ValueError(f"pd_substeps_kernel: unsupported device {device}")
-    check_model(model, _library(LIBRARY_OF[name])[1], hfield_shape, None if motor is None else motor[0])
-    batch = physics.qpos.shape[0]
-    inputs = dict(
-        qpos=_trailing(physics.qpos),
-        qvel=_trailing(physics.qvel),
-        target=_trailing(target),
-        kp=_trailing(params.kp),
-        kd=_trailing(params.kd),
-        bemf=_trailing(params.bemf_gain),
-        damping=_trailing(params.dof_damping),
-        frictionloss=_trailing(params.dof_frictionloss),
-        body_mass=_trailing(params.body_mass),
-        body_ipos=_trailing(params.body_ipos),
-        xfrc=_trailing(params.xfrc),
-    )
-    out = control_step_launch(
-        model, inputs, frame_skip, sim_dt, settle, reuse_interval, terrain_blocks(terrain), hfield_shape,
-        None if motor is None else motor_blocks(motor[0], motor[1], device),
-    )
-    nc, nb = model.ncon, model.nbody
-    lead = lambda x, *shape: x.t().reshape(batch, *shape)
-    if terrain is None:
-        frame = torch.as_tensor(eng._Z_FRAME, device=device).expand(batch, nc, 3, 3)
-    else:
-        # the kernel returns the contact normals; the frames follow from them
-        frame = eng.frame_from_normal(lead(out["cnormal"], nc, 3))
-    contact = Contact(
-        pos=lead(out["cpos"], nc, 3),
-        frame=frame,
-        dist=lead(out["cdist"], nc),
-        geom=torch.as_tensor(eng.slot_geoms(model), dtype=torch.int32, device=device).expand(batch, -1),
-        force=lead(out["cforce"], nc, 3),
-        mask=lead(out["cmask"], nc),
-    )
-    state = PhysicsState(
-        qpos=lead(out["qpos"], model.nq),
-        qvel=lead(out["qvel"], model.nv),
-        qacc=lead(out["qacc"], model.nv),
-        act_torque=lead(out["act_torque"], model.nu),
-        xpos=lead(out["xpos"], nb, 3),
-        xquat=lead(out["xquat"], nb, 4),
-        cvel=lead(out["cvel"], nb, 6),
-        contact=contact,
-        time=physics.time + frame_skip * sim_dt,
-    )
-    if motor is None:
-        return state
-    # joint-major (nu * H, B) -> batch-leading (B, H, nu), as views
-    hist = lambda x: x.reshape(model.nu, HIST_LEN, batch).permute(2, 1, 0)
-    return state, MotorState(qdot_hist=hist(out["qd_hist"]), ctau_hist=hist(out["ct_hist"]), count=out["count"].reshape(batch))
+        out = control_step_launch(
+            model, inputs, frame_skip, sim_dt, settle, reuse_interval, terrain_blocks(terrain), hfield_shape,
+            None if motor is None else motor_blocks(motor[0], motor[1], device),
+        )
+        nc, nb = model.ncon, model.nbody
+        lead = lambda x, *shape: x.t().reshape(batch, *shape)
+        if terrain is None:
+            frame = torch.as_tensor(eng._Z_FRAME, device=device).expand(batch, nc, 3, 3)
+        else:
+            # the kernel returns the contact normals; the frames follow from them
+            frame = eng.frame_from_normal(lead(out["cnormal"], nc, 3))
+        contact = Contact(
+            pos=lead(out["cpos"], nc, 3),
+            frame=frame,
+            dist=lead(out["cdist"], nc),
+            geom=torch.as_tensor(eng.slot_geoms(model), dtype=torch.int32, device=device).expand(batch, -1),
+            force=lead(out["cforce"], nc, 3),
+            mask=lead(out["cmask"], nc),
+        )
+        state = PhysicsState(
+            qpos=lead(out["qpos"], model.nq),
+            qvel=lead(out["qvel"], model.nv),
+            qacc=lead(out["qacc"], model.nv),
+            act_torque=lead(out["act_torque"], model.nu),
+            xpos=lead(out["xpos"], nb, 3),
+            xquat=lead(out["xquat"], nb, 4),
+            cvel=lead(out["cvel"], nb, 6),
+            contact=contact,
+            time=physics.time + frame_skip * sim_dt,
+        )
+        if motor is None:
+            return state
+        # joint-major (nu * H, B) -> batch-leading (B, H, nu), as views
+        hist = lambda x: x.reshape(model.nu, HIST_LEN, batch).permute(2, 1, 0)
+        return state, MotorState(qdot_hist=hist(out["qd_hist"]), ctau_hist=hist(out["ct_hist"]),
+                                 count=out["count"].reshape(batch))
 
 
 # ---------------------------------------------------------------------------

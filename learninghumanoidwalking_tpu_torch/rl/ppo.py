@@ -41,6 +41,7 @@ from learninghumanoidwalking_tpu_torch.rl.gae import compute_gae
 from learninghumanoidwalking_tpu_torch.rl.imitation import imitation_loss
 from learninghumanoidwalking_tpu_torch.rl.mirror import obs_symmetry_matrix, symmetry_matrix
 from learninghumanoidwalking_tpu_torch.rl.normalize import RunningNorm, init_norm, update_norm
+from learninghumanoidwalking_tpu_torch.utils import trace
 from learninghumanoidwalking_tpu_torch.utils.seeding import Draws
 
 # consecutive non-finite steps Adam skips before it applies one all the same
@@ -115,24 +116,25 @@ class Adam:
 
     @torch.no_grad()
     def step(self, grads: list) -> None:
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)
-        self.nonfinite_total = self.nonfinite_total + (~finite).to(torch.int32)
-        apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        trigger = g_norm < self.max_norm
-        grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm) for g in grads]
-        count = torch.where(apply, self.count + 1, self.count)
-        bc1 = 1 - self.b1**count
-        bc2 = 1 - self.b2**count
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            mu = self.b1 * self.mu[i] + (1 - self.b1) * g
-            nu = self.b2 * self.nu[i] + (1 - self.b2) * (g * g)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.copy_(torch.where(apply, p - self.lr * update, p))
-            self.mu[i] = torch.where(apply, mu, self.mu[i])
-            self.nu[i] = torch.where(apply, nu, self.nu[i])
-        self.count = count
+        with trace.span("ppo.adam"):
+            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)
+            self.nonfinite_total = self.nonfinite_total + (~finite).to(torch.int32)
+            apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            trigger = g_norm < self.max_norm
+            grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm) for g in grads]
+            count = torch.where(apply, self.count + 1, self.count)
+            bc1 = 1 - self.b1**count
+            bc2 = 1 - self.b2**count
+            for i, (p, g) in enumerate(zip(self.params, grads)):
+                mu = self.b1 * self.mu[i] + (1 - self.b1) * g
+                nu = self.b2 * self.nu[i] + (1 - self.b2) * (g * g)
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                p.copy_(torch.where(apply, p - self.lr * update, p))
+                self.mu[i] = torch.where(apply, mu, self.mu[i])
+                self.nu[i] = torch.where(apply, nu, self.nu[i])
+            self.count = count
 
 
 @dataclasses.dataclass
@@ -533,7 +535,9 @@ class PPO:
         for epoch in range(cfg.epochs):
             if cfg.minibatch_scheme == "slice":
                 perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n_mb, self.device)
-                index_sets = [slice(int(i) * mb_size, int(i) * mb_size + mb_size) for i in perm.tolist()]
+                with trace.span("host.read"):
+                    order = perm.tolist()
+                index_sets = [slice(int(i) * mb_size, int(i) * mb_size + mb_size) for i in order]
             else:
                 perm = perms[epoch] if perms is not None else self.draws.permutation("minibatch", n, self.device)
                 index_sets = list(perm[: n_mb * mb_size].reshape(n_mb, mb_size))
@@ -549,16 +553,17 @@ class PPO:
         """One gradient step of both nets on ``mb`` (of a global minibatch of
         ``count`` samples); adds the loss terms to ``sums``. Over ranks the
         gradients are summed before the step, so every rank steps alike."""
-        a_params = list(ts.actor.parameters())
-        c_params = list(ts.critic.parameters())
-        total, aux = loss_fn(ts.actor, ts.critic, ts.norm, mb, count)
-        grads = list(torch.autograd.grad(total, a_params + c_params))
-        if self.shard is not None:
-            grads = self.shard.all_reduce(grads)
-        ts.actor_opt.step(grads[: len(a_params)])
-        ts.critic_opt.step(grads[len(a_params) :])
-        for k, v in aux.items():
-            sums[k] = sums.get(k, 0.0) + v.detach()
+        with trace.span("ppo.grad_step"):
+            a_params = list(ts.actor.parameters())
+            c_params = list(ts.critic.parameters())
+            total, aux = loss_fn(ts.actor, ts.critic, ts.norm, mb, count)
+            grads = list(torch.autograd.grad(total, a_params + c_params))
+            if self.shard is not None:
+                grads = self.shard.all_reduce(grads)
+            ts.actor_opt.step(grads[: len(a_params)])
+            ts.critic_opt.step(grads[len(a_params) :])
+            for k, v in aux.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
 
     def _update_recurrent(self, ts: TrainState, batch: Batch, perms: list | None = None):
         """``epochs`` passes over minibatches of env sequences (T, seq_mb),
@@ -675,7 +680,9 @@ class PPO:
         (or 2 to the last) on the CPU and the card and writes a Chrome trace
         there (trace.json). Returns (final TrainState, per-iteration
         metrics); ``on_iteration(itr, metrics)`` sees each iteration's.
-        Times are taken after a device synchronization. On a data-parallel
+        Times (``time.perf_counter``) are taken after a device
+        synchronization; the iteration's parts are utils/trace.py spans,
+        recorded while a profiler runs. On a data-parallel
         rank other than 0, nothing is printed, evaluated, logged, saved or
         traced: it waits at a barrier while rank 0 evaluates and saves."""
         cfg = self.cfg
@@ -684,69 +691,76 @@ class PPO:
         if not self.lead:
             logger = checkpointer = profile_dir = None
         ts = self.init_state() if ts is None else ts
-        for _ in range(self.warmup_iterations()):
-            ts = self._warmup_iteration(ts)
-        history = []
-        start = time.time()
-        best_eval = -float("inf")
-        prof = None
-        for itr in range(n_itr):
-            if profile_dir is not None and itr == 2:
-                prof = _start_profiler(self.device)
-            with torch.profiler.record_function("ppo.iteration"):
-                t0 = time.time()
-                with torch.profiler.record_function("ppo.sample"):
-                    ts, batch, roll = self._sample_iteration(ts)
-                    roll = {k: float(v) for k, v in roll.items()}
-                t1 = time.time()
-                with torch.profiler.record_function("ppo.optimize"):
-                    ts, aux = self._optimize_iteration(ts, batch)
-                    aux = {k: float(v) for k, v in aux.items()}
-                t2 = time.time()
-                del batch
-                fps = cfg.batch_size / max(t2 - t0, 1e-9)
-                metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
-                           "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9), "fps": fps,
-                           "nonfinite_steps": int(ts.actor_opt.nonfinite_total + ts.critic_opt.nonfinite_total)}
-                if verbose:
-                    print(
-                        f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "
-                        f"ep_len {metrics['mean_episode_length']:.1f} | actor {metrics['actor_loss']:.4f} | "
-                        f"critic {metrics['critic_loss']:.4f} | kl {metrics['approx_kl']:.4f} | "
-                        f"sample {metrics['sample_env_steps_per_s']:,.0f} env-steps/s | optimize {t2 - t1:.2f} s",
-                        flush=True,
-                    )
-                if logger is not None:
-                    logger.log_training(itr, metrics)
-                    logger.log_timing(itr, fps=fps, sample_time=t1 - t0, optimize_time=t2 - t1,
-                                      total_elapsed=time.time() - start)
-                if evaluate and (itr % cfg.eval_freq == 0 or itr == n_itr - 1):
-                    if self.lead:
-                        with torch.profiler.record_function("ppo.eval"):
-                            t3 = time.time()
-                            evals = {k: float(v) for k, v in self._eval_rollout(ts, self.eval_draws(itr)).items()}
-                            metrics.update(evals, eval_time=time.time() - t3)
-                        if verbose:
-                            print(f"  eval @ {itr}: reward {evals['eval_mean_reward']:.2f} "
-                                  f"len {evals['eval_mean_episode_length']:.1f}", flush=True)
-                        if logger is not None:
-                            logger.log_eval(itr, evals)
-                        if checkpointer is not None:
-                            t4 = time.time()
-                            is_best = evals["eval_mean_reward"] > best_eval
-                            best_eval = max(best_eval, evals["eval_mean_reward"])
-                            checkpointer.save(itr, ts, self.draws, metrics=evals, is_best=is_best)
-                            metrics["checkpoint_time"] = time.time() - t4
-                    if self.shard is not None:
-                        self.shard.barrier()
-            history.append(metrics)
-            if on_iteration is not None:
-                on_iteration(itr, metrics)
-            if prof is not None and (itr == 4 or itr == n_itr - 1):
-                path = _stop_profiler(prof, profile_dir, self.device)
-                prof = None
-                if verbose:
-                    print(f"profiler trace (iterations 2-{itr}) written to {path}", flush=True)
+        try:
+            for _ in range(self.warmup_iterations()):
+                ts = self._warmup_iteration(ts)
+            history = []
+            start = time.perf_counter()
+            best_eval = -float("inf")
+            prof = None
+            for itr in range(n_itr):
+                if profile_dir is not None and itr == 2:
+                    prof = _start_profiler(self.device)
+                with trace.span("ppo.iteration"):
+                    t0 = time.perf_counter()
+                    with trace.span("ppo.sample"):
+                        ts, batch, roll = self._sample_iteration(ts)
+                        with trace.span("host.read"):
+                            roll = {k: float(v) for k, v in roll.items()}
+                    t1 = time.perf_counter()
+                    with trace.span("ppo.optimize"):
+                        ts, aux = self._optimize_iteration(ts, batch)
+                        with trace.span("host.read"):
+                            aux = {k: float(v) for k, v in aux.items()}
+                    t2 = time.perf_counter()
+                    del batch
+                    with trace.span("host.read"):
+                        nonfinite = int(ts.actor_opt.nonfinite_total + ts.critic_opt.nonfinite_total)
+                    fps = cfg.batch_size / max(t2 - t0, 1e-9)
+                    metrics = {**roll, **aux, "sample_time": t1 - t0, "optimize_time": t2 - t1,
+                               "sample_env_steps_per_s": cfg.batch_size / max(t1 - t0, 1e-9), "fps": fps,
+                               "nonfinite_steps": nonfinite}
+                    if verbose:
+                        print(
+                            f"itr {itr:5d} | reward/step {metrics['mean_reward']:.3f} | "
+                            f"ep_len {metrics['mean_episode_length']:.1f} | actor {metrics['actor_loss']:.4f} | "
+                            f"critic {metrics['critic_loss']:.4f} | kl {metrics['approx_kl']:.4f} | "
+                            f"sample {metrics['sample_env_steps_per_s']:,.0f} env-steps/s | optimize {t2 - t1:.2f} s",
+                            flush=True,
+                        )
+                    if logger is not None:
+                        logger.log_training(itr, metrics)
+                        logger.log_timing(itr, fps=fps, sample_time=t1 - t0, optimize_time=t2 - t1,
+                                          total_elapsed=time.perf_counter() - start)
+                    if evaluate and (itr % cfg.eval_freq == 0 or itr == n_itr - 1):
+                        if self.lead:
+                            with trace.span("ppo.eval"):
+                                t3 = time.perf_counter()
+                                evals = {k: float(v) for k, v in self._eval_rollout(ts, self.eval_draws(itr)).items()}
+                                metrics.update(evals, eval_time=time.perf_counter() - t3)
+                            if verbose:
+                                print(f"  eval @ {itr}: reward {evals['eval_mean_reward']:.2f} "
+                                      f"len {evals['eval_mean_episode_length']:.1f}", flush=True)
+                            if logger is not None:
+                                logger.log_eval(itr, evals)
+                            if checkpointer is not None:
+                                t4 = time.perf_counter()
+                                is_best = evals["eval_mean_reward"] > best_eval
+                                best_eval = max(best_eval, evals["eval_mean_reward"])
+                                checkpointer.save(itr, ts, self.draws, metrics=evals, is_best=is_best)
+                                metrics["checkpoint_time"] = time.perf_counter() - t4
+                        if self.shard is not None:
+                            self.shard.barrier()
+                history.append(metrics)
+                if on_iteration is not None:
+                    on_iteration(itr, metrics)
+                if prof is not None and (itr == 4 or itr == n_itr - 1):
+                    path = _stop_profiler(prof, profile_dir, self.device)
+                    prof = None
+                    if verbose:
+                        print(f"profiler trace (iterations 2-{itr}) written to {path}", flush=True)
+        finally:
+            trace.stop()
         return ts, history
 
 

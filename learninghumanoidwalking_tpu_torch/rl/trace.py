@@ -1,12 +1,14 @@
 """Read back a Chrome trace that PPO.train's profiler hook wrote
 (torch.profiler's export_chrome_trace): the CUDA kernels with the most
-device time, and the device's idle share within the trainer's annotated
-spans (``ppo.iteration``, ``ppo.sample``, ``ppo.optimize``, ``ppo.eval``).
+device time, and the device's idle share within the program's annotated
+spans (utils/trace.py's ``SPANS``: ``ppo.iteration``, ``ppo.sample``,
+``ppo.optimize``, ``ppo.eval``, ``env.step``, ``physics.launch``, ...).
 
 The idle share of a span is 1 - (the union of device activity, kernels and
 memory copies and sets, inside the span's host interval) / (its length).
-Each iteration ends in a host read of its metrics, so the device work of a
-span ends inside it.
+``ppo.sample`` and ``ppo.optimize`` end in a host read of their metrics, so
+their device work ends inside them; the work queued in a span without such
+a read (``env.step``, ``physics.launch``, ...) runs on past its end.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+from learninghumanoidwalking_tpu_torch.utils.trace import SPANS
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPANS = ("ppo.iteration", "ppo.sample", "ppo.optimize", "ppo.eval")
 
 
 def _union_within(intervals: list, lo: float, hi: float) -> float:

@@ -311,13 +311,16 @@ def test_profiler_hook_writes_a_trace(tmp_path, monkeypatch):
     """train(profile_dir=...) traces iterations 2 to the last (here 2) with
     torch.profiler and writes a Chrome trace whose annotated spans
     rl/trace.py reads back (on the CPU there is no device activity: every
-    span is idle). The physics is replaced by the identity here: the plain
-    version's thousands of small ops a step would make the trace hundreds
-    of MB, and the hook does not depend on them."""
-    from learninghumanoidwalking_tpu_torch.envs import humanoid
+    span is idle). The plain physics is replaced by the identity here: its
+    thousands of small ops a step would make the trace hundreds of MB, and
+    the hook does not depend on them. The traced iteration's spans
+    (utils/trace.py) are all in it: its env steps and resets, each with its
+    physics launch, the evaluation's among them (2 steps, 2 resets), its 2
+    gradient steps with 2 Adam steps each and its 4 host reads."""
+    from learninghumanoidwalking_tpu_torch.ops import substep_kernel
     from learninghumanoidwalking_tpu_torch.rl.trace import summarize_trace
 
-    monkeypatch.setattr(humanoid, "pd_substeps_kernel", lambda model, dyn, physics, *args, **kw: physics)
+    monkeypatch.setattr(substep_kernel, "pd_substeps_batched", lambda model, dyn, physics, *args, **kw: physics)
     trainer = _small_trainer(eval_freq=100)
     _, history = trainer.train(3, verbose=False, profile_dir=tmp_path)
     assert [("eval_time" in m) for m in history] == [True, False, True]
@@ -325,5 +328,8 @@ def test_profiler_hook_writes_a_trace(tmp_path, monkeypatch):
     assert summary["spans"]["ppo.iteration"]["count"] == 1
     assert summary["spans"]["ppo.sample"]["count"] == summary["spans"]["ppo.optimize"]["count"] == 1
     assert summary["spans"]["ppo.eval"]["count"] == 1  # the last iteration evaluates
+    counts = {name: v["count"] for name, v in summary["spans"].items()}
+    assert counts == {"ppo.iteration": 1, "ppo.sample": 1, "ppo.optimize": 1, "ppo.eval": 1, "ppo.grad_step": 2,
+                      "ppo.adam": 4, "env.step": 3, "env.reset": 3, "physics.launch": 6, "host.read": 4}
     assert summary["top_kernels"] == [] and summary["spans"]["ppo.iteration"]["idle_share"] == 1.0
     assert (tmp_path / "trace.json").stat().st_size < 50e6
